@@ -1,0 +1,45 @@
+"""eGPU core: the paper's SM and multi-SM device, in PyTorch.
+
+Public API:
+    SMConfig                             — single-SM machine parameters
+    DeviceConfig, launch, LaunchResult   — multi-SM device layer (grid/block
+                                           launches, global memory)
+    program_trace, schedule_blocks       — static block traces + the
+                                           static-wave / dynamic-queue
+                                           block schedulers
+    WavePacking, pack_waves              — schedule-aware wave packing
+    assemble, auto_nop, check_hazards    — assembler
+    MegakernelPlan, compile_megakernel   — the megakernel engine
+    ExecBackend, execute_backends        — "cuda" (kernels on the card) and
+                                           "cpu" (plain versions on the host)
+"""
+from .assembler import AsmError, Program, assemble, auto_nop, check_hazards
+from .cycles import ProgramTrace, instr_cycles, program_trace
+from .device import (
+    DeviceConfig,
+    DeviceState,
+    Kernel,
+    LaunchResult,
+    buffer_layout,
+    init_device_state,
+    launch,
+    pack_buffers,
+)
+from .executor import ExecBackend, execute_backends, get_execute_backend
+from .isa import CLASS_NAMES, Cond, Depth, Instr, Op, Typ, Width
+from .machine import SMConfig
+from .packing import PACKINGS, WavePacking, pack_waves
+from .scheduler import Schedule, schedule_blocks
+from .trace_engine import ENGINES, MegakernelPlan, compile_megakernel
+
+__all__ = [
+    "AsmError", "Program", "assemble", "auto_nop", "check_hazards",
+    "ProgramTrace", "instr_cycles", "program_trace",
+    "DeviceConfig", "DeviceState", "Kernel", "LaunchResult", "buffer_layout",
+    "init_device_state", "launch", "pack_buffers",
+    "ExecBackend", "execute_backends", "get_execute_backend",
+    "CLASS_NAMES", "Cond", "Depth", "Instr", "Op", "Typ", "Width",
+    "SMConfig", "PACKINGS", "WavePacking", "pack_waves",
+    "Schedule", "schedule_blocks",
+    "ENGINES", "MegakernelPlan", "compile_megakernel",
+]

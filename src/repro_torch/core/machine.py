@@ -1,0 +1,77 @@
+"""eGPU machine configuration.
+
+One SM = 16 SPs, 512 threads max, 16 registers/thread (one M20K per two
+registers: the 512x32 M20K geometry is what fixed these numbers in the
+paper). Shared memory is quad-read-port / single-write-port; depth is
+parameterizable (the §III.E sector-packing budget gives 3K words when four
+SMs share one Agilex sector).
+
+Architectural words are typeless 32-bit values. The port stores them as
+``torch.int32`` and bitcasts with ``.view(torch.float32)`` where an
+instruction reads them as FP32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+N_SP = 16                # scalar processors per SM
+MAX_THREADS = 512        # threads per SM
+N_REGS = 16              # registers per thread
+MAX_WAVES = MAX_THREADS // N_SP
+RET_STACK_DEPTH = 8
+LOOP_STACK_DEPTH = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SMConfig:
+    """Static (plan-time) machine parameters."""
+
+    n_threads: int = MAX_THREADS       # initialized threads (<= 512)
+    dim_x: int = 16                    # 2D thread space: x dimension
+    shmem_depth: int = 3072            # words (12 KiB: §III.E sector budget)
+    imem_depth: int = 512              # one M20K of 512x40
+    max_steps: int = 100_000           # sequencer fuel
+    with_dot: bool = True              # dot-product extension unit
+    with_sfu: bool = True              # inverse-sqrt SFU
+
+    def __post_init__(self):
+        if not 1 <= self.n_threads <= MAX_THREADS:
+            raise ValueError(f"n_threads={self.n_threads} not in [1, {MAX_THREADS}]")
+        if self.n_threads % self.dim_x:
+            raise ValueError("n_threads must be divisible by dim_x")
+
+    @property
+    def dim_y(self) -> int:
+        return self.n_threads // self.dim_x
+
+    @property
+    def n_waves(self) -> int:
+        return max(1, (self.n_threads + N_SP - 1) // N_SP)
+
+
+def as_u32_image(arr, depth: int, what: str = "memory",
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """Coerce a host array to a (..., depth) memory image of 32-bit words,
+    stored as ``torch.int32`` on ``device``.
+
+    float input is rounded to float32 and bitcast (the eGPU memory system
+    is typeless 32-bit words); integer input keeps its low 32 bits;
+    shorter images are zero-padded on the last axis.
+    """
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    a = np.asarray(arr)
+    if a.dtype.kind == "f" and a.dtype.itemsize >= 4:
+        a = a.astype(np.float32).view(np.uint32)
+    else:
+        a = a.astype(np.int64).astype(np.uint32)
+    pad = depth - a.shape[-1]
+    if pad < 0:
+        raise ValueError(f"{what} image of {a.shape[-1]} words exceeds "
+                         f"depth {depth}")
+    if pad:
+        a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)

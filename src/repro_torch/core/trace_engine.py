@@ -1,0 +1,239 @@
+"""The megakernel engine: a program lowered once, run as fused segments.
+
+The eGPU ISA has no data-dependent control flow, so the sequence of
+instructions a block issues is a static property of the program
+(``cycles.program_trace``, exact). A program is lowered ONCE, on the
+host, into a pre-decoded structure-of-arrays schedule: one row per
+issued data instruction (NOP and control rows carry no data effect and
+are compiled out; their cycle costs stay in the trace).
+
+The megakernel engine splits that schedule at the global-port rows
+(GLD/GST serialize on the one device-wide port): each maximal run of
+SM-local rows between them is a fused segment that runs as ONE launch of
+the segment kernel with the wave's registers and shared memory resident
+on chip; each global-port row runs by itself through the gather/scatter
+kernels. The plan's packed row table is uploaded to a device once and
+kept with the plan.
+
+Cycle counters never come from execution: they are the static trace's
+(``trace.static_cycles`` / ``cycles_by_class``), which the golden-cycle
+suite pins.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .cycles import ProgramTrace, program_trace
+from .executor import (
+    DATA_SEL_OF_OP,
+    FIELDS,
+    FUSED_SELS,
+    FusedRow,
+    _decode,
+    exec_segment,
+    make_data_handlers,
+)
+from .isa import NUM_CLASSES
+from .machine import SMConfig
+
+ENGINES = ("step", "trace", "megakernel")
+
+# "auto" only picks the megakernel engine for programs whose schedules it
+# can unroll body-to-body; longer schedules fall back to the scanned trace
+# engine (engine_fallback = "megakernel-unroll-cap"). An explicit
+# engine="megakernel" ignores the cap.
+MEGAKERNEL_UNROLL_CAP = 4096
+
+# ...and only when there is enough fusible work: below this many
+# residual (non-gmem) data rows in the LONGEST program of the launch,
+# "auto" falls back to "step" (engine_fallback = "megakernel-too-small").
+# Both thresholds are the reference's, kept for parity of engine choice.
+MEGAKERNEL_MIN_FUSED_ROWS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceSchedule:
+    """One program lowered to a pre-decoded instruction schedule.
+
+    ``cols[f]`` is the (n_steps,) int32 column for decoded field ``f`` —
+    one row per *data* instruction of the issued trace. ``trace`` keeps
+    the full issued trace for timing; ``by_class_base``/``by_class_gmem``
+    pre-reduce its per-class cycle totals."""
+
+    cfg: SMConfig
+    trace: ProgramTrace
+    cols: dict[str, np.ndarray]
+    by_class_base: np.ndarray       # (NUM_CLASSES,) trace.cycles_by_class(1)
+    by_class_gmem: np.ndarray       # (NUM_CLASSES,) gmem-only cycle rows
+
+    @property
+    def n_steps(self) -> int:
+        return int(self.cols["sel"].shape[0])
+
+    @property
+    def halted(self) -> bool:
+        return self.trace.halted
+
+    @property
+    def table(self) -> np.ndarray:
+        """(n_steps, len(FIELDS)) int32 row table."""
+        return np.stack([self.cols[f] for f in FIELDS], axis=1)
+
+    def cycles_by_class(self, wave_n: int) -> np.ndarray:
+        """== ``trace.cycles_by_class(wave_n)`` (GMEM scaled by the wave
+        width), from the precomputed reductions."""
+        return self.by_class_base + (wave_n - 1) * self.by_class_gmem
+
+
+@functools.lru_cache(maxsize=256)
+def _compile_cached(words_key: tuple, cfg: SMConfig) -> TraceSchedule:
+    trace = program_trace(np.asarray(words_key, np.int64), cfg.n_threads,
+                          imem_depth=cfg.imem_depth, max_steps=cfg.max_steps)
+    # data steps only: rows whose handler has an architectural data effect
+    pcs = np.asarray([t.pc for t in trace.instrs
+                      if DATA_SEL_OF_OP[int(t.op)] != 0], np.int64)
+    # the wave packer bins on trace.data_steps; it must equal the rows
+    # lowered here
+    if pcs.size != trace.data_steps:
+        raise AssertionError(
+            "cycles.ProgramTrace.data_steps disagrees with DATA_SEL_OF_OP")
+    # every data pc addresses a real program word (STOP padding is control)
+    if pcs.size and pcs.max() >= len(words_key):
+        raise AssertionError("data instruction issued from STOP-padded I-MEM")
+    words = np.asarray(words_key, np.int64)[pcs] if pcs.size \
+        else np.zeros((0,), np.int64)
+    d = _decode(words & 0xFFFFFFFF, (words >> 32) & 0x3FFF)
+    n_waves = cfg.n_waves
+    depth_table = np.array(
+        [n_waves, max(1, n_waves // 2), max(1, n_waves // 4), 1], np.int64)
+    width_table = np.array([16, 8, 4, 1], np.int64)
+    cols = dict(
+        sel=DATA_SEL_OF_OP[d["opcode"]],
+        opcode=d["opcode"], typ=d["typ"],
+        rd=d["rd"], ra=d["ra"], rb=d["rb"],
+        imm=d["imm"], x=d["x"], ext_a=d["ext_a"], ext_b=d["ext_b"],
+        pen=d["pen"], preg=d["preg"], pneg=d["pneg"],
+        act_waves=depth_table[d["depth"]],
+        act_wthreads=width_table[d["width"]],
+    )
+    cols = {f: np.asarray(cols[f], np.int32) for f in FIELDS}
+    by_base = np.asarray(trace.cycles_by_class(1), np.int64)
+    by_gmem = np.zeros((NUM_CLASSES,), np.int64)
+    for t in trace.instrs:
+        if t.gmem:
+            by_gmem[t.klass] += t.cycles
+    return TraceSchedule(cfg=cfg, trace=trace, cols=cols,
+                         by_class_base=by_base, by_class_gmem=by_gmem)
+
+
+# ---------------------------------------------------------------------------
+# segment megakernels: fused runs between global-port accesses
+# ---------------------------------------------------------------------------
+
+def _fused_rows(sched: TraceSchedule) -> tuple:
+    """A schedule's rows as host-constant ``executor.FusedRow``s."""
+    return tuple(FusedRow.from_fields(v) for v in sched.table)
+
+
+_GMEM_SELS = (8, 9)        # GLD/GST data-switch branches (the global port)
+
+
+def _segment_items(rows) -> tuple:
+    """Split a row sequence at global-port rows: ``("fused", (start,
+    stop))`` is a run of schedule rows for one segment launch,
+    ``("gmem", row)`` a serialized port row by itself."""
+    items, start = [], None
+    for i, r in enumerate(rows):
+        if r.sel in _GMEM_SELS:
+            if start is not None:
+                items.append(("fused", (start, i)))
+                start = None
+            items.append(("gmem", r))
+        else:
+            if r.sel not in FUSED_SELS:
+                raise AssertionError(f"row {i} has no data effect "
+                                     f"(sel={r.sel})")
+            if start is None:
+                start = i
+    if start is not None:
+        items.append(("fused", (start, len(rows))))
+    return tuple(items)
+
+
+@dataclasses.dataclass(frozen=True)
+class MegakernelPlan:
+    """One program lowered to fused segments (megakernel engine unit).
+
+    ``items`` is the ordered execution plan; ``sched`` keeps the
+    underlying trace schedule, whose row table the fused items index, and
+    the timing model's trace. ``device_table`` uploads that table to a
+    device once and keeps it with the plan."""
+
+    key: tuple                 # program words
+    cfg: SMConfig
+    sched: TraceSchedule
+    items: tuple
+    _tables: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+
+    @property
+    def halted(self) -> bool:
+        return self.sched.halted
+
+    def device_table(self, device: torch.device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(
+                np.ascontiguousarray(self.sched.table)).to(device)
+        return self._tables[key]
+
+
+@functools.lru_cache(maxsize=256)
+def _megakernel_cached(words_key: tuple, cfg: SMConfig) -> MegakernelPlan:
+    sched = _compile_cached(words_key, cfg)
+    return MegakernelPlan(key=words_key, cfg=cfg, sched=sched,
+                          items=_segment_items(_fused_rows(sched)))
+
+
+def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
+    """Lower ``program`` to a fused-segment megakernel plan for ``cfg``
+    (cached, sharing the schedule cache)."""
+    words = program.words if hasattr(program, "words") else program
+    return _megakernel_cached(tuple(int(w) for w in words), cfg)
+
+
+def run_wave_megakernel(plan: MegakernelPlan, block_idx, prog_idx, state):
+    """Run one homogeneous wave: fused segments through the segment
+    kernel, global-port rows through the gather/scatter kernels, on the
+    device the state lives on. Counters come from the static trace (the
+    lockstep wave rule charges each member for the whole wave's port
+    drain, ``trace.static_cycles``)."""
+    n = state.regs.shape[0]
+    device = state.regs.device
+    table = plan.device_table(device)
+    bidx = torch.as_tensor(np.asarray(block_idx), dtype=torch.int32,
+                           device=device)
+    pidx = torch.as_tensor(np.asarray(prog_idx), dtype=torch.int32,
+                           device=device)
+    regs, shmem, gmem, oob = state.regs, state.shmem, state.gmem, state.oob
+    for kind, payload in plan.items:
+        if kind == "fused":
+            start, stop = payload
+            regs, shmem, oob = exec_segment(plan.cfg, table[start:stop],
+                                            bidx, pidx, regs, shmem, oob)
+        else:
+            handler = make_data_handlers(plan.cfg, payload)
+            regs, shmem, gmem, oob = handler[payload.sel](
+                (regs, shmem, gmem, oob))
+    tr = plan.sched.trace
+    return dataclasses.replace(
+        state, regs=regs, shmem=shmem, gmem=gmem, oob=oob,
+        halted=state.halted or tr.halted,
+        steps=state.steps + tr.steps,
+        cycles=state.cycles + tr.static_cycles(n),
+        cycles_by_class=state.cycles_by_class
+        + plan.sched.cycles_by_class(n))

@@ -1,0 +1,106 @@
+"""Seeded random row tables and machine states that exercise every
+SM-local handler: address collisions, masked and out-of-range lanes,
+snooped operands, guarded rows, NaN, infinite and denormal FP32 words,
+and INVSQR. The CPU tests and the chip smoke both draw from here, so the
+kernels and their plain versions are held against the same inputs."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.executor import FIELDS
+from ..core.isa import Op
+from ..core.machine import MAX_THREADS, N_REGS
+
+# registers 0-3 hold small ints (addresses around the memory), 4-9 FP32
+# words (specials included), 10-15 arbitrary bits
+_ADDR_REGS, _FP_REGS = range(0, 4), range(4, 10)
+
+_SPECIAL_F32 = np.array(
+    [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+     0x7F800001, 0xFFC00000, 0x00000001, 0x807FFFFF, 0x00400000,
+     0x00800000, 0x80800000, 0x3F800000, 0xBF800000],
+    np.uint32)
+
+_OPS_OF_SEL = {
+    1: [int(o) for o in (Op.ADD, Op.SUB, Op.MUL, Op.AND, Op.OR, Op.XOR,
+                         Op.NOT, Op.LSL, Op.LSR)],
+    2: [int(Op.LOD)], 3: [int(Op.STO)], 4: [int(Op.LODI)],
+    5: [int(o) for o in (Op.TDX, Op.TDY, Op.BID, Op.PID)],
+    6: [int(Op.DOT), int(Op.SUM)], 7: [int(Op.INVSQR)],
+    10: [int(Op.SETP)], 11: [int(Op.SELP)],
+}
+
+
+def random_f32_words(rng: np.random.Generator, shape) -> np.ndarray:
+    """uint32 FP32 words: mostly normal values over a wide range, with
+    signed zeros, infinities, NaNs and denormals mixed in."""
+    x = (rng.standard_normal(shape)
+         * np.exp2(rng.integers(-30, 30, shape))).astype(np.float32)
+    w = x.view(np.uint32).copy()
+    pick = rng.random(shape) < 0.15
+    w[pick] = rng.choice(_SPECIAL_F32, size=int(pick.sum()))
+    den = rng.random(shape) < 0.05
+    w[den] = (rng.integers(1, 1 << 23, int(den.sum()))
+              | (rng.integers(0, 2, int(den.sum())) << 31)).astype(np.uint32)
+    return w
+
+
+def random_state(rng: np.random.Generator, n_sms: int, depth: int):
+    """``(regs, shmem)`` uint32 arrays for ``n_sms`` SMs with ``depth``
+    shared-memory words, laid out as the register map above."""
+    regs = rng.integers(0, 1 << 32, (n_sms, MAX_THREADS, N_REGS),
+                        dtype=np.uint64).astype(np.uint32)
+    for r in _ADDR_REGS:
+        regs[:, :, r] = rng.integers(-8, depth + 8,
+                                     (n_sms, MAX_THREADS)).astype(np.uint32)
+    regs[:, :, _FP_REGS.start:_FP_REGS.stop] = random_f32_words(
+        rng, (n_sms, MAX_THREADS, len(_FP_REGS)))
+    shmem = random_f32_words(rng, (n_sms, depth))
+    return regs, shmem
+
+
+def random_rows(rng: np.random.Generator, n_rows: int, *,
+                sels=tuple(_OPS_OF_SEL), n_threads: int = MAX_THREADS
+                ) -> np.ndarray:
+    """A (n_rows, 15) int32 table of SM-local rows in ``FIELDS`` order,
+    drawn from the data-switch branches ``sels``."""
+    n_waves = max(1, (n_threads + 15) // 16)
+    depth_table = [n_waves, max(1, n_waves // 2), max(1, n_waves // 4), 1]
+    out = np.zeros((n_rows, len(FIELDS)), np.int32)
+    for i in range(n_rows):
+        sel = int(rng.choice(sels))
+        op = int(rng.choice(_OPS_OF_SEL[sel]))
+        f = dict(sel=sel, opcode=op, typ=int(rng.integers(0, 4)),
+                 rd=int(rng.integers(0, N_REGS)),
+                 ra=int(rng.integers(0, N_REGS)),
+                 rb=int(rng.integers(0, N_REGS)),
+                 imm=0, x=0, ext_a=0, ext_b=0, pen=0, preg=0, pneg=0,
+                 act_waves=int(rng.choice(depth_table)),
+                 act_wthreads=int(rng.choice([16, 8, 4, 1])))
+        if sel in (2, 3):
+            f["ra"] = int(rng.choice(list(_ADDR_REGS)))
+            f["imm"] = int(rng.integers(-16, 17))
+        elif sel == 4:
+            f["imm"] = int(rng.integers(-(1 << 14), 1 << 14))
+        elif sel == 6:
+            f["typ"] = 2
+            f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
+        elif sel == 7:
+            f["typ"] = 2
+            f["ra"] = int(rng.choice(list(_FP_REGS)))
+        elif sel == 10:
+            f["imm"] = int(rng.integers(0, 8))
+            f["typ"] = int(rng.integers(0, 3))
+        elif sel == 1 and rng.random() < 0.5:
+            f["typ"] = 2
+            f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
+        if sel != 10 and rng.random() < 0.25:
+            f["x"] = 1
+            f["ext_a"], f["ext_b"] = (int(v) for v in rng.integers(0, 32, 2))
+            f["imm"] = 0
+        if rng.random() < 0.3:
+            f["pen"] = 1
+            f["preg"] = int(rng.integers(0, N_REGS))
+            f["pneg"] = int(rng.integers(0, 2))
+        out[i] = [f[k] for k in FIELDS]
+    return out

@@ -59,6 +59,10 @@ def pytest_configure(config):
         "(CI runs it standalone under "
         "XLA_FLAGS=--xla_force_host_platform_device_count=4 via "
         "`pytest -m fleet`)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the PyTorch/CUDA port's kernels on a CUDA device; skips "
+        "where none is present (run on the card via `pytest -m cuda`)")
 
 try:
     import hypothesis  # noqa: F401
