@@ -11,6 +11,12 @@ import numpy as np
 import torch
 
 from .core.device import DeviceState, LaunchResult
+from .core.machine import MachineState
+
+# the sequencer fields and counters of a MachineState, host values on both
+# sides
+_SEQ_FIELDS = ("pc", "ret_stack", "ret_sp", "loop_ctr", "loop_sp", "halted",
+               "steps", "cycles", "cycles_by_class")
 
 
 def _words(a, device) -> torch.Tensor:
@@ -45,3 +51,34 @@ def launch_result_to_numpy(res: LaunchResult) -> dict[str, np.ndarray]:
     return {"regs": _u32(res.regs), "shmem": _u32(res.shmem),
             "gmem": _u32(res.gmem),
             "oob": res.oob.detach().cpu().numpy().astype(bool)}
+
+
+def machine_state_from_numpy(fields, device: torch.device | str = "cpu"
+                             ) -> MachineState:
+    """A port ``MachineState`` from a mapping of numpy views of a
+    reference ``MachineState``'s fields (uint32 ``regs``/``shmem``, bool
+    ``oob``, integer sequencer fields and counters)."""
+    f = {k: np.asarray(fields[k]) for k in ("regs", "shmem", "oob")
+         + _SEQ_FIELDS}
+    scalar = lambda k: f[k].item()  # noqa: E731
+    return MachineState(
+        regs=_words(f["regs"], device), shmem=_words(f["shmem"], device),
+        oob=torch.from_numpy(f["oob"].astype(bool).copy()).to(device),
+        pc=int(scalar("pc")), ret_stack=f["ret_stack"].astype(np.int64),
+        ret_sp=int(scalar("ret_sp")),
+        loop_ctr=f["loop_ctr"].astype(np.int64),
+        loop_sp=int(scalar("loop_sp")), halted=bool(scalar("halted")),
+        steps=int(scalar("steps")), cycles=int(scalar("cycles")),
+        cycles_by_class=f["cycles_by_class"].astype(np.int64))
+
+
+def machine_state_to_numpy(state: MachineState) -> dict[str, np.ndarray]:
+    """A port ``MachineState`` as numpy arrays: uint32 words, bool ``oob``
+    and int64 sequencer fields and counters, comparable with ``==`` to
+    ``np.asarray`` of the reference's fields."""
+    out = {"regs": _u32(state.regs), "shmem": _u32(state.shmem),
+           "oob": state.oob.detach().cpu().numpy().astype(bool)}
+    for k in _SEQ_FIELDS:
+        out[k] = np.asarray(getattr(state, k)).astype(
+            bool if k == "halted" else np.int64)
+    return out

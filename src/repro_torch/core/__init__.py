@@ -9,6 +9,9 @@ Public API:
                                            block schedulers
     WavePacking, pack_waves              — schedule-aware wave packing
     assemble, auto_nop, check_hazards    — assembler
+    MachineState, init_state, profile,   — single-SM state and the step-
+    run, run_many                          engine shims
+    TraceSchedule, compile_program       — the trace engine
     MegakernelPlan, compile_megakernel   — the megakernel engine
     ExecBackend, execute_backends        — "cuda" (kernels on the card) and
                                            "cpu" (plain versions on the host)
@@ -25,21 +28,36 @@ from .device import (
     launch,
     pack_buffers,
 )
-from .executor import ExecBackend, execute_backends, get_execute_backend
+from .executor import (
+    ExecBackend,
+    execute_backends,
+    get_execute_backend,
+    run,
+    run_many,
+)
 from .isa import CLASS_NAMES, Cond, Depth, Instr, Op, Typ, Width
-from .machine import SMConfig
+from .machine import MachineState, SMConfig, init_state, profile
 from .packing import PACKINGS, WavePacking, pack_waves
 from .scheduler import Schedule, schedule_blocks
-from .trace_engine import ENGINES, MegakernelPlan, compile_megakernel
+from .trace_engine import (
+    ENGINES,
+    MegakernelPlan,
+    TraceSchedule,
+    compile_megakernel,
+    compile_program,
+)
 
 __all__ = [
     "AsmError", "Program", "assemble", "auto_nop", "check_hazards",
     "ProgramTrace", "instr_cycles", "program_trace",
     "DeviceConfig", "DeviceState", "Kernel", "LaunchResult", "buffer_layout",
     "init_device_state", "launch", "pack_buffers",
-    "ExecBackend", "execute_backends", "get_execute_backend",
+    "ExecBackend", "execute_backends", "get_execute_backend", "run",
+    "run_many",
     "CLASS_NAMES", "Cond", "Depth", "Instr", "Op", "Typ", "Width",
-    "SMConfig", "PACKINGS", "WavePacking", "pack_waves",
+    "MachineState", "SMConfig", "init_state", "profile",
+    "PACKINGS", "WavePacking", "pack_waves",
     "Schedule", "schedule_blocks",
-    "ENGINES", "MegakernelPlan", "compile_megakernel",
+    "ENGINES", "MegakernelPlan", "TraceSchedule", "compile_megakernel",
+    "compile_program",
 ]

@@ -9,8 +9,10 @@ Timing comes from ``core.scheduler`` over the programs' static traces
 (exact, because the ISA has no data-dependent control flow): static
 lockstep waves of ``n_sms`` blocks, or dynamic work-queue dispatch. The
 architectural results come from running each wave of one program as one
-lockstep batch on the megakernel engine (``core.trace_engine``), in a
-canonical program-major, block order — so they do not depend on the
+lockstep batch on a functional engine — the step engine (``run_wave``:
+fetch, decode and sequence on the host, the data path on the state's
+device), or the trace and megakernel engines of ``core.trace_engine`` —
+in a canonical program-major, block order, so they do not depend on the
 dispatch discipline.
 
 Global-memory semantics (the packed-sector memory model): reads (GLD) see
@@ -33,15 +35,39 @@ import torch
 
 from . import isa, trace_engine
 from .cycles import ProgramTrace, program_trace
-from .executor import backend_device, pack_imem
-from .isa import NUM_CLASSES
-from .machine import MAX_THREADS, N_REGS, SMConfig, as_u32_image
+from .executor import (
+    _CLASS_OF,
+    _G_CTL,
+    _G_GLD,
+    _G_GST,
+    _G_LOD,
+    _G_NOP,
+    _G_SFU,
+    _G_STO,
+    _GROUP_OF_OP,
+    DATA_SEL_OF_OP,
+    ExecBackend,
+    FusedRow,
+    _decode,
+    backend_device,
+    get_execute_backend,
+    make_data_handlers,
+    pack_imem,
+)
+from .isa import NUM_CLASSES, Op
+from .machine import (
+    LOOP_STACK_DEPTH,
+    MAX_THREADS,
+    N_REGS,
+    RET_STACK_DEPTH,
+    MachineState,
+    SMConfig,
+    as_u32_image,
+)
 from .packing import PACKINGS, WavePacking, pack_waves
 from .scheduler import SCHEDULES, Schedule, schedule_blocks
 
-# the ROADMAP items that add what this slice of the port refuses
-_STEP_TRACE_ITEM = "ROADMAP queue A, item 1 (step engine) and item 2 " \
-                   "(trace engine)"
+# the ROADMAP item that adds what the port still refuses
 _MERGED_ITEM = "ROADMAP queue A, item 3 (heterogeneous grids)"
 
 
@@ -87,12 +113,20 @@ class DeviceState:
     """One wave's batched machine state.
 
     Data state is per-SM (leading ``n_sms`` axis) on the backend's device;
-    the counters are host values taken from the static trace."""
+    the one sequencer the lockstep wave shares (pc, the stacks, the halt
+    flag) and the counters are host values."""
 
     regs: torch.Tensor     # (n_sms, MAX_THREADS, N_REGS) int32
     shmem: torch.Tensor    # (n_sms, shmem_depth) int32
     gmem: torch.Tensor     # (global_mem_depth,) int32 — SHARED
     oob: torch.Tensor      # (n_sms,) bool — per-SM out-of-range access
+    pc: int = 0
+    ret_stack: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((RET_STACK_DEPTH,), np.int64))
+    ret_sp: int = 0
+    loop_ctr: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((LOOP_STACK_DEPTH,), np.int64))
+    loop_sp: int = 0
     halted: bool = False
     steps: int = 0
     cycles: int = 0        # wave cycles incl. gmem contention
@@ -133,6 +167,165 @@ def init_device_state(cfg: SMConfig, n_sms: int, gmem_depth: int = 64,
                          device=device),
         shmem=sh, gmem=gm,
         oob=torch.zeros((n_sms,), dtype=torch.bool, device=device))
+
+
+def lift_machine_state(state: MachineState, gmem_depth: int = 64,
+                       device: torch.device | str | None = None
+                       ) -> DeviceState:
+    """Wrap a single-SM ``MachineState`` as a 1-SM wave (on ``device``,
+    default the state's own)."""
+    dev = state.regs.device if device is None else device
+    return DeviceState(
+        regs=state.regs[None].to(dev), shmem=state.shmem[None].to(dev),
+        gmem=torch.zeros((gmem_depth,), dtype=torch.int32, device=dev),
+        oob=state.oob.reshape(1).to(dev),
+        pc=int(state.pc), ret_stack=np.array(state.ret_stack, np.int64),
+        ret_sp=int(state.ret_sp),
+        loop_ctr=np.array(state.loop_ctr, np.int64),
+        loop_sp=int(state.loop_sp), halted=bool(state.halted),
+        steps=int(state.steps), cycles=int(state.cycles),
+        cycles_by_class=np.array(state.cycles_by_class, np.int64))
+
+
+def squeeze_device_state(s: DeviceState) -> MachineState:
+    """Project a 1-SM wave back to the single-SM ``MachineState`` view."""
+    return MachineState(
+        regs=s.regs[0], shmem=s.shmem[0], pc=s.pc,
+        ret_stack=s.ret_stack.copy(), ret_sp=s.ret_sp,
+        loop_ctr=s.loop_ctr.copy(), loop_sp=s.loop_sp,
+        halted=s.halted, oob=s.oob[0], steps=s.steps, cycles=s.cycles,
+        cycles_by_class=s.cycles_by_class.copy())
+
+
+# ---------------------------------------------------------------------------
+# the step engine: the sequencer on the host, the data path on the device
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Issue:
+    """One I-MEM word as the step engine issues it, decoded once."""
+
+    op: int
+    imm_raw: int
+    group: int
+    klass: int
+    row: FusedRow          # the data path's view (row.sel 0: none)
+
+
+def _issue_table(cfg: SMConfig, imem_lo, imem_hi) -> list:
+    """A lazily filled pc -> ``_Issue`` table over the packed I-MEM."""
+    d = _decode(np.asarray(imem_lo), np.asarray(imem_hi))
+    n_waves = cfg.n_waves
+    depth_table = (n_waves, max(1, n_waves // 2), max(1, n_waves // 4), 1)
+    width_table = (16, 8, 4, 1)
+    table: list = [None] * len(d["opcode"])
+
+    def issue(pc: int) -> _Issue:
+        it = table[pc]
+        if it is None:
+            f = {k: int(v[pc]) for k, v in d.items()}
+            op = f["opcode"]
+            aw, awt = depth_table[f["depth"]], width_table[f["width"]]
+            fields = {k: f[k] for k in ("opcode", "typ", "rd", "ra", "rb",
+                                        "imm", "x", "ext_a", "ext_b", "pen",
+                                        "preg", "pneg")}
+            it = table[pc] = _Issue(
+                op=op, imm_raw=f["imm_raw"], group=int(_GROUP_OF_OP[op]),
+                # a 2-bit type field of 3 reads the last class column
+                klass=int(_CLASS_OF[op, min(f["typ"], 2)]),
+                row=FusedRow(sel=int(DATA_SEL_OF_OP[op]), d=fields,
+                             act_waves=aw, act_wthreads=awt))
+        return it
+
+    return issue
+
+
+def _issue_cycles(it: _Issue, n_sms: int) -> int:
+    """Sequencer cycles of one issue. Per-SM resources (ALU, shared
+    memory, extension units) run concurrently across the lockstep batch;
+    the single global-memory port serializes the batch, so GLD/GST pay
+    ``n_sms * active_threads`` (``cycles.py``)."""
+    act_threads = it.row.act_waves * it.row.act_wthreads
+    if it.group == _G_LOD:
+        return max(1, (act_threads + 3) // 4)
+    if it.group == _G_STO:
+        return act_threads
+    if it.group in (_G_GLD, _G_GST):
+        return act_threads * n_sms
+    if it.group in (_G_NOP, _G_CTL, _G_SFU):
+        return 1
+    return it.row.act_waves
+
+
+def run_wave(cfg: SMConfig, backend: ExecBackend, imem_lo, imem_hi,
+             block_idx, prog_idx, state: DeviceState) -> DeviceState:
+    """Run one wave of blocks to completion on the STEP engine: fetch,
+    decode and dispatch per instruction.
+
+    The ISA has no data-dependent control flow and the wave shares one
+    pc, so the sequencer (fetch from the packed I-MEM, decode cached per
+    word, JMP/JSR/RTS/LOOP/INIT/STOP with clipped stack indices, the
+    ``max_steps`` fuel and the pc range test) runs on the host in Python
+    integers, and each data instruction is dispatched into
+    ``executor.make_data_handlers`` on the state's device. The host never
+    reads the card inside the loop."""
+    device = state.regs.device
+    n_sms = state.regs.shape[0]
+    bidx = trace_engine._wave_index(block_idx, device)
+    pidx = trace_engine._wave_index(prog_idx, device)
+    issue = _issue_table(cfg, imem_lo, imem_hi)
+    handlers: dict[int, Any] = {}
+    data = (state.regs, state.shmem, state.gmem, state.oob)
+    pc, ret_sp, loop_sp = state.pc, state.ret_sp, state.loop_sp
+    ret_stack = [int(v) for v in state.ret_stack]
+    loop_ctr = [int(v) for v in state.loop_ctr]
+    halted, steps, cycles = state.halted, state.steps, state.cycles
+    by_class = np.array(state.cycles_by_class, np.int64)
+    while not halted and steps < cfg.max_steps and 0 <= pc < cfg.imem_depth:
+        it = issue(pc)
+        if it.row.sel:
+            if pc not in handlers:
+                handlers[pc] = make_data_handlers(
+                    cfg, backend, it.row, bidx, pidx)[it.row.sel]
+            data = handlers[pc](data)
+        # ---- sequencer (non-control opcodes fall through to pc + 1) ----
+        op, imm, pc1 = it.op, it.imm_raw, pc + 1
+        if op == Op.JMP:
+            pc = imm
+        elif op == Op.JSR:
+            ret_stack[min(max(ret_sp, 0), RET_STACK_DEPTH - 1)] = pc1
+            ret_sp += 1
+            pc = imm
+        elif op == Op.RTS:
+            pc = ret_stack[min(max(ret_sp - 1, 0), RET_STACK_DEPTH - 1)]
+            ret_sp -= 1
+        elif op == Op.LOOP:
+            # decrement the top counter; jump while > 1, pop at 1
+            lsp = min(max(loop_sp - 1, 0), LOOP_STACK_DEPTH - 1)
+            top = loop_ctr[lsp]
+            loop_ctr[lsp] = top - 1
+            if top > 1:
+                pc = imm
+            else:
+                pc = pc1
+                loop_sp -= 1
+        elif op == Op.INIT:
+            loop_ctr[min(max(loop_sp, 0), LOOP_STACK_DEPTH - 1)] = imm
+            loop_sp += 1
+            pc = pc1
+        else:
+            halted = op == Op.STOP
+            pc = pc1
+        cyc = _issue_cycles(it, n_sms)
+        steps += 1
+        cycles += cyc
+        by_class[it.klass] += cyc
+    regs, shmem, gmem, oob = data
+    return dataclasses.replace(
+        state, regs=regs, shmem=shmem, gmem=gmem, oob=oob, pc=pc,
+        ret_stack=np.array(ret_stack, np.int64), ret_sp=ret_sp,
+        loop_ctr=np.array(loop_ctr, np.int64), loop_sp=loop_sp,
+        halted=halted, steps=steps, cycles=cycles, cycles_by_class=by_class)
 
 
 # ---------------------------------------------------------------------------
@@ -477,8 +670,10 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
       grid: number of thread blocks, as ``(n_blocks,)`` or an int.
       block: threads per block (<= 512); defaults to ``dcfg.sm.n_threads``.
       programs, grid_map: the multi-program form (``grid_map[b]`` names
-        the program block ``b`` runs). This slice runs it when every block
-        runs one program; a heterogeneous grid raises.
+        the program block ``b`` runs; BID is the block's index within its
+        own program's grid, PID its program index). The step engine runs
+        a heterogeneous grid program-major; on the trace and megakernel
+        engines it raises (the merged waves are not ported yet).
       buffers: named host arrays packed into global memory from offset 0 in
         insertion order (layout via ``buffer_layout``); mutually exclusive
         with ``gmem``, a raw initial global-memory image.
@@ -487,10 +682,12 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
       backend: execute backend, ``"cuda"`` or ``"cpu"``; default from dcfg.
       dim_x: the 2-D thread-space x extent (TDX/TDY); defaults to ``block``.
       schedule: "static", "dynamic" or "auto" (static for one program).
-      engine: "megakernel", or "auto" when it resolves to the megakernel
-        (the reference's ladder, unchanged: short programs resolve to
-        "step", over-long ones to "trace"). This slice runs only the
-        megakernel engine; any other engine raises NotImplementedError.
+      engine: "step" (fetch/decode/dispatch per instruction, the
+        sequencer on the host), "trace" (the pre-decoded schedule, row by
+        row), "megakernel" (fused segments between global-port rows) or
+        "auto", the reference's ladder: megakernel, degrading to "trace"
+        above the unroll cap and to "step" for fuel-limited or too-short
+        programs (``profile()["engine_fallback"]`` names the reason).
       packing: wave-packing policy ("grid" | "length" | "auto"), which
         shapes the timing model's waves.
     """
@@ -507,20 +704,23 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         _warn_static_priority()
 
     # ---- per-program static resources -----------------------------------
-    names, cfgs, _, traces, word_arrays = _lower_kernels(dcfg, kernels)
+    names, cfgs, imems, traces, word_arrays = _lower_kernels(dcfg, kernels)
     eng, eng_fallback = _resolve_engine(engine, dcfg, traces)
     present = [k for k in range(len(kernels)) if (gmap == k).any()]
-    if eng != "megakernel":
+    # the step engine runs a heterogeneous grid program-major, as the
+    # reference does; the compiled engines merge such grids into shared
+    # waves, which the port does not have yet
+    if eng != "step" and len(present) > 1:
         raise NotImplementedError(
-            f"engine={eng!r}"
-            + (f" (auto fallback: {eng_fallback})" if eng_fallback else "")
-            + f" is not ported yet; see {_STEP_TRACE_ITEM}. Pass "
-            f"engine='megakernel' to run this launch on the megakernel")
-    if len(present) > 1:
-        raise NotImplementedError(
-            f"a heterogeneous grid is not ported yet; see {_MERGED_ITEM}")
-    plans = {k: trace_engine.compile_megakernel(word_arrays[k], cfgs[k])
-             for k in present}
+            f"a heterogeneous grid on engine={eng!r} is not ported yet; see "
+            f"{_MERGED_ITEM}. engine='step' runs it program-major")
+    if eng == "trace":
+        plans = {k: trace_engine.compile_program(word_arrays[k], cfgs[k])
+                 for k in present}
+    elif eng == "megakernel":
+        plans = {k: trace_engine.compile_megakernel(word_arrays[k], cfgs[k])
+                 for k in present}
+    be = get_execute_backend(backend or dcfg.backend)
 
     # ---- wave packing + the schedule (timing) ----------------------------
     phase_of_kernel = np.cumsum([int(k.barrier) for k in kernels])
@@ -566,6 +766,8 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         pos = np.flatnonzero(gmap == k)
         cfg = cfgs[k]
         sh_batch = _kernel_shmem(shmems[k], cfg.shmem_depth, pos.size, k)
+        if sh_batch is not None:
+            sh_batch = sh_batch.to(device)        # one upload per program
         for w0 in range(0, pos.size, dcfg.n_sms):
             w1 = min(w0 + dcfg.n_sms, pos.size)
             n = w1 - w0
@@ -573,8 +775,17 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
                 cfg, n, gmem_depth=dcfg.global_mem_depth,
                 shmem=None if sh_batch is None else sh_batch[w0:w1],
                 gmem=gm, device=device)
-            fin = trace_engine.run_wave_megakernel(
-                plans[k], np.arange(w0, w1), np.full((n,), k), st)
+            # program-local BID, PID = k
+            bidx = torch.arange(w0, w1, dtype=torch.int32, device=device)
+            pidx = torch.full((n,), k, dtype=torch.int32, device=device)
+            if eng == "step":
+                fin = run_wave(cfg, be, *imems[k], bidx, pidx, st)
+            elif eng == "trace":
+                fin = trace_engine.run_wave_trace(cfg, be, plans[k], bidx,
+                                                  pidx, st)
+            else:
+                fin = trace_engine.run_wave_megakernel(be, plans[k], bidx,
+                                                       pidx, st)
             gm = fin.gmem               # batches run back to back
             fin_shmem = fin.shmem
             if cfg.shmem_depth < shmem_pad:

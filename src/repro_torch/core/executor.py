@@ -13,7 +13,7 @@ Faithful to the paper's SM microarchitecture:
     sequential in thread order, so the *last* active thread wins on
     address collisions).
 
-This module holds what the megakernel engine needs:
+This module holds the execute stage of every engine:
 
   * ``pack_imem`` / ``_decode`` — the 40-bit I-word field extraction, on
     the host in numpy;
@@ -24,23 +24,29 @@ This module holds what the megakernel engine needs:
     ``segment`` CUDA kernel is held against, and the CPU path of
     ``kernels.simt_step.simt_segment``;
   * ``exec_segment`` — a fused run through the segment kernel;
-  * ``make_data_handlers`` — the GLD/GST global-port rows, which split
-    fused runs and go through the ``gather_shared``/``scatter_shared``
-    kernels;
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
-    kernels) and ``"cpu"`` (tensors on the host, the plain versions).
+    per-op kernels) and ``"cpu"`` (tensors on the host, their plain
+    versions), each with the per-op seam ``alu``/``lod``/``sto``/``gld``/
+    ``gst``;
+  * ``make_data_handlers`` — the 12-way data path of one decoded
+    instruction, which the step and trace engines run row by row and the
+    megakernel runs for its global-port rows;
+  * ``run`` / ``run_many`` — single-SM and SM-batch shims over the step
+    engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
 
 from . import isa
 from .isa import Op
-from .machine import MAX_THREADS, MAX_WAVES, N_SP
-from ..kernels import ref
+from .machine import MAX_THREADS, MAX_WAVES, N_SP, MachineState, SMConfig
+from ..kernels import ref, simt_alu, simt_step
 
 
 def pack_imem(words: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]:
@@ -320,7 +326,7 @@ def _last_writer_write(mem, addr, vals, do):
     write = do & (torch.gather(winner, 1, slot) == order)
     out = torch.cat([mem, torch.zeros_like(mem[:, :1])], dim=1)
     out.scatter_(1, torch.where(write, slot, depth), vals)
-    return out[:, :depth]
+    return out[:, :depth].contiguous()        # the kernels' layout
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +335,19 @@ def _last_writer_write(mem, addr, vals, do):
 
 @dataclasses.dataclass(frozen=True)
 class ExecBackend:
-    """One named execute backend. The kernels' wrappers dispatch on the
-    device of the tensors they are given, so a backend is the device the
-    launch keeps its state on."""
+    """One named execute backend: the device the launch keeps its state
+    on, and the per-op seam the step and trace engines dispatch into —
+    ``alu(op, typ, a, b, mask, old)``, ``lod(shmem, addr, mask, old)``,
+    ``sto(shmem, addr, vals, do)``, ``gld(gmem, addr, mask, old)`` and
+    ``gst(gmem, addr, vals, do)``."""
 
     name: str
     device: str
+    alu: Callable
+    lod: Callable
+    sto: Callable
+    gld: Callable
+    gst: Callable
 
 
 _EXECUTE_BACKENDS: dict[str, ExecBackend] = {}
@@ -369,41 +382,183 @@ def backend_device(name: str) -> torch.device:
     return torch.device(dev)
 
 
-register_backend(ExecBackend(name="cuda", device="cuda"))
-register_backend(ExecBackend(name="cpu", device="cpu"))
+# the card: the five kernels; the host: their plain versions
+register_backend(ExecBackend(
+    name="cuda", device="cuda", alu=simt_alu.simt_alu,
+    lod=simt_step.simt_gather, sto=simt_step.simt_scatter,
+    gld=simt_step.simt_gather_shared, gst=simt_step.simt_scatter_shared))
+register_backend(ExecBackend(
+    name="cpu", device="cpu", alu=simt_alu.alu_plain,
+    lod=simt_step.gather_plain, sto=simt_step.scatter_plain,
+    gld=simt_step.gather_shared_plain, gst=simt_step.scatter_shared_plain))
 
 
 # ---------------------------------------------------------------------------
-# the global-port rows (GLD/GST split fused runs)
+# the shared execute stage (step + trace engines dispatch into these
+# handlers; the megakernel runs its global-port rows through them)
 # ---------------------------------------------------------------------------
 
-def make_data_handlers(cfg, row: FusedRow):
-    """The data-path handlers of one GLD/GST row over the state tuple
-    ``(regs, shmem, gmem, oob)``, indexed by data-switch branch (8 = GLD,
-    9 = GST). Masks, operands and addresses are computed here in PyTorch;
-    the gather and the serialized store run in the ``gather_shared`` /
-    ``scatter_shared`` kernels."""
-    from ..kernels.simt_step import simt_gather_shared, simt_scatter_shared
+@functools.lru_cache(maxsize=16)
+def _lanes(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(tid, lane)`` index vectors of one SM on ``device``, made once."""
+    tid = torch.arange(MAX_THREADS, device=device)
+    return tid, tid % N_SP
 
+
+@functools.lru_cache(maxsize=1024)
+def _active(n_threads: int, act_waves: int, act_wthreads: int, n_sms: int,
+            device: torch.device) -> torch.Tensor:
+    """The flexible-ISA thread mask of an SM batch, (n_sms, 512) and
+    contiguous as the kernels take it, made once per shape."""
+    tid, lane = _lanes(device)
+    one = ((lane < act_wthreads) & (tid // N_SP < act_waves)
+           & (tid < n_threads))
+    return one.expand(n_sms, MAX_THREADS).contiguous()
+
+
+def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
+                       prog_idx, *, shmem_depth: int | None = None):
+    """The 12-way data-path switch body of one decoded instruction.
+
+    ``row`` holds the decoded fields as host integers (``row.d``) and the
+    flexible-ISA active shape; ``block_idx``/``prog_idx`` are the wave's
+    (n_sms,) int32 tensors. Returns a list of handlers over the data-state
+    tuple ``(regs, shmem, gmem, oob)`` — index it with the row's
+    data-switch branch ``row.sel`` (branch 0 is the identity for
+    NOP/control). ALU, LOD, STO, GLD and GST run through ``backend``'s
+    per-op seam; LODI, TDX/TDY/BID/PID, DOT/SUM, INVSQR, SETP and SELP are
+    PyTorch operations on the state's device. Nothing here reads the card
+    back to the host.
+
+    DOT/SUM folds each wavefront's 16 lane terms in halves (8, 4, 2, 1)
+    and adds the result to +0.0: the order the reference's step and trace
+    engines take. The megakernel's fused segment keeps its own order
+    (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
+
+    ``shmem_depth`` bounds LOD/STO addressing (default: the shared-memory
+    array's own depth)."""
     d = row.d
+    op, typ = d["opcode"], d["typ"]
+    rd, ra, rb = d["rd"], d["ra"], d["rb"]
+    imm = d["imm"]
+    snoop = d["x"] == 1
 
     def pgate(regs):
+        """The predicate gate alone, or None on a legacy PEN=0 word."""
         if not d["pen"]:
-            return torch.ones(regs.shape[:2], dtype=torch.bool,
-                              device=regs.device)
+            return None
         p = (regs[:, :, d["preg"]] & 1) != 0               # (n_sms, 512)
         return ~p if d["pneg"] else p
 
+    def active(regs):
+        return _active(cfg.n_threads, row.act_waves, row.act_wthreads,
+                       regs.shape[0], regs.device)
+
     def eff(regs):
-        return row.active(cfg.n_threads, regs.device)[None] & pgate(regs)
+        p = pgate(regs)
+        return active(regs) if p is None else active(regs) & p
+
+    def col(regs, r):
+        return regs[:, :, r].contiguous()                  # (n_sms, 512)
+
+    def set_col(regs, r, vals):
+        out = regs.clone()
+        out[:, :, r] = vals
+        return out
+
+    def operand(regs, r, ext):
+        # snoop (X=1) gathers regs[ext*16 + lane]
+        if snoop:
+            return regs[:, ext * N_SP + _lanes(regs.device)[1], r]
+        return col(regs, r)
 
     def operands(regs):
-        tid = torch.arange(MAX_THREADS, device=regs.device)
-        ra_tid = d["ext_a"] * N_SP + tid % N_SP if d["x"] == 1 else tid
-        return regs[:, ra_tid, d["ra"]]                    # (n_sms, 512)
+        return operand(regs, ra, d["ext_a"]), operand(regs, rb, d["ext_b"])
 
     def addr_of(regs):
-        return ref.wrap32(operands(regs).to(torch.int64) + d["imm"])
+        return ref.wrap32(operand(regs, ra, d["ext_a"]).to(torch.int64)
+                          + imm)
+
+    def h_identity(s):
+        return s
+
+    def h_alu(s):
+        regs, shmem, gmem, oob = s
+        a_u, b_u = operands(regs)
+        res = backend.alu(op, typ, a_u, b_u, eff(regs), col(regs, rd))
+        return set_col(regs, rd, res), shmem, gmem, oob
+
+    def h_lod(s):
+        regs, shmem, gmem, oob = s
+        depth = shmem_depth if shmem_depth is not None else shmem.shape[1]
+        m = eff(regs)
+        addr = addr_of(regs)
+        bad = m & ((addr < 0) | (addr >= depth))
+        vals = backend.lod(shmem, addr.clamp(0, depth - 1), m & ~bad,
+                           col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob | bad.any(dim=1)
+
+    def h_sto(s):
+        regs, shmem, gmem, oob = s
+        depth = shmem_depth if shmem_depth is not None else shmem.shape[1]
+        m = eff(regs)
+        addr = addr_of(regs)
+        bad = m & ((addr < 0) | (addr >= depth))
+        shmem = backend.sto(shmem, addr, col(regs, rd), m & ~bad)
+        return regs, shmem, gmem, oob | bad.any(dim=1)
+
+    def h_lodi(s):
+        regs, shmem, gmem, oob = s
+        val = int(np.float32(imm).view(np.int32)) \
+            if typ == int(isa.Typ.FP32) else imm           # host bitcast
+        vals = torch.where(eff(regs), val, col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob
+
+    def h_td(s):
+        regs, shmem, gmem, oob = s
+        n_sms = regs.shape[0]
+        tid = _lanes(regs.device)[0]
+        if op == int(Op.TDX):
+            vals = (tid % cfg.dim_x).to(torch.int32)[None]
+        elif op == int(Op.TDY):
+            vals = (tid // cfg.dim_x).to(torch.int32)[None]
+        elif op == int(Op.BID):
+            vals = block_idx.to(torch.int32)[:, None]
+        else:
+            vals = prog_idx.to(torch.int32)[:, None]
+        vals = torch.where(eff(regs), vals.expand(n_sms, MAX_THREADS),
+                           col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob
+
+    def h_red(s):
+        # DOT/SUM: reduce each active wavefront across its enabled lanes
+        # and write lane 0 of that wavefront; a wavefront with no enabled
+        # lane keeps its old lane-0 value
+        regs, shmem, gmem, oob = s
+        n_sms = regs.shape[0]
+        a_u, b_u = operands(regs)
+        terms = ref.fp_binop(ref.ALU_MUL if op == int(Op.DOT)
+                             else ref.ALU_ADD, a_u, b_u)
+        lane_eff = eff(regs).reshape(n_sms, MAX_WAVES, N_SP)
+        red = ref.wavefront_reduce(terms.reshape(n_sms, MAX_WAVES, N_SP),
+                                   lane_eff, pairwise=True)
+        out = regs.clone()
+        out[:, ::N_SP, rd] = torch.where(lane_eff.any(dim=2), red,
+                                         regs[:, ::N_SP, rd])
+        return out, shmem, gmem, oob
+
+    def h_sfu(s):
+        # single-lane SFU: 1/sqrt of wavefront-0 lane-0 (snoopable source);
+        # the issuing thread-0 predicate gates the write
+        regs, shmem, gmem, oob = s
+        src = d["ext_a"] * N_SP if snoop else 0
+        new = ref.invsqr(regs[:, src, ra])
+        p = pgate(regs)
+        if p is not None:
+            new = torch.where(p[:, 0], new, regs[:, 0, rd])
+        out = regs.clone()
+        out[:, 0, rd] = new
+        return out, shmem, gmem, oob
 
     def h_gld(s):
         regs, shmem, gmem, oob = s
@@ -411,12 +566,9 @@ def make_data_handlers(cfg, row: FusedRow):
         m = eff(regs)
         addr = addr_of(regs)
         bad = m & ((addr < 0) | (addr >= gdepth))
-        safe = addr.clamp(0, gdepth - 1)
-        vals = simt_gather_shared(gmem, safe, m & ~bad,
-                                  regs[:, :, d["rd"]].contiguous())
-        regs = regs.clone()
-        regs[:, :, d["rd"]] = vals
-        return regs, shmem, gmem, oob | bad.any(dim=1)
+        vals = backend.gld(gmem, addr.clamp(0, gdepth - 1), m & ~bad,
+                           col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob | bad.any(dim=1)
 
     def h_gst(s):
         regs, shmem, gmem, oob = s
@@ -425,9 +577,83 @@ def make_data_handlers(cfg, row: FusedRow):
         addr = addr_of(regs)
         bad = m & ((addr < 0) | (addr >= gdepth))
         # the single device-wide port drains in (sm, thread) order
-        gmem = simt_scatter_shared(gmem, addr,
-                                   regs[:, :, d["rd"]].contiguous(),
-                                   m & ~bad)
+        gmem = backend.gst(gmem, addr, col(regs, rd), m & ~bad)
         return regs, shmem, gmem, oob | bad.any(dim=1)
 
-    return {8: h_gld, 9: h_gst}
+    def h_setp(s):
+        regs, shmem, gmem, oob = s
+        a_u, b_u = operands(regs)
+        res = ref.setp_compare(imm, typ, a_u, b_u).to(torch.int32)
+        vals = torch.where(eff(regs), res, col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob
+
+    def h_selp(s):
+        # Rd = P ? Ra : Rb — the @-guard is the SELECTOR here, not a write
+        # gate: SELP writes on every active lane (PEN=0 selects Ra)
+        regs, shmem, gmem, oob = s
+        a_u, b_u = operands(regs)
+        p = pgate(regs)
+        vals = a_u if p is None else torch.where(p, a_u, b_u)
+        vals = torch.where(active(regs), vals, col(regs, rd))
+        return set_col(regs, rd, vals), shmem, gmem, oob
+
+    return [h_identity, h_alu, h_lod, h_sto, h_lodi, h_td, h_red, h_sfu,
+            h_gld, h_gst, h_setp, h_selp]
+
+
+# ---------------------------------------------------------------------------
+# public entry points (single-wave shims over the step engine)
+# ---------------------------------------------------------------------------
+
+def run(cfg: SMConfig, program, shmem=None, state: MachineState | None = None,
+        *, backend: str = "cuda") -> MachineState:
+    """Assemble-and-run convenience wrapper: ONE SM, one thread block, on
+    the step engine.
+
+    ``program`` is a Program or an ndarray of encoded 40-bit words; a
+    given ``state`` continues from where it stopped. Use
+    ``device.launch`` for grids, global memory and multi-SM runs."""
+    from . import device
+
+    words = program.words if hasattr(program, "words") else np.asarray(program)
+    lo, hi = pack_imem(words, cfg.imem_depth)
+    dev = backend_device(backend)
+    if state is None:
+        dstate = device.init_device_state(cfg, n_sms=1, shmem=shmem,
+                                          device=dev)
+    else:
+        dstate = device.lift_machine_state(state, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fin = device.run_wave(cfg, get_execute_backend(backend), lo, hi, zero,
+                          zero, dstate)
+    return device.squeeze_device_state(fin)
+
+
+def run_many(cfg: SMConfig, program, shmem_batch, *,
+             backend: str = "cuda") -> MachineState:
+    """Multi-SM execution: one eGPU instance per shared-memory image, the
+    same program as one step-engine wave. The returned ``MachineState``
+    carries a leading batch axis on every field."""
+    from . import device
+
+    dev = backend_device(backend)
+    n_sms = len(shmem_batch)
+    words = program.words if hasattr(program, "words") else np.asarray(program)
+    lo, hi = pack_imem(words, cfg.imem_depth)
+    dstate = device.init_device_state(cfg, n_sms=n_sms, shmem=shmem_batch,
+                                      device=dev)
+    fin = device.run_wave(
+        cfg, get_execute_backend(backend), lo, hi,
+        torch.arange(n_sms, dtype=torch.int32, device=dev),
+        torch.zeros((n_sms,), dtype=torch.int32, device=dev), dstate)
+
+    def b(x):
+        return np.broadcast_to(np.asarray(x), (n_sms,) + np.shape(x)).copy()
+
+    return MachineState(
+        regs=fin.regs, shmem=fin.shmem,
+        pc=b(fin.pc), ret_stack=b(fin.ret_stack), ret_sp=b(fin.ret_sp),
+        loop_ctr=b(fin.loop_ctr), loop_sp=b(fin.loop_sp),
+        halted=b(fin.halted), oob=fin.oob,
+        steps=b(fin.steps), cycles=b(fin.cycles),
+        cycles_by_class=b(fin.cycles_by_class))

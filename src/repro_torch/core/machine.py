@@ -8,11 +8,16 @@ SMs share one Agilex sector).
 
 Architectural words are typeless 32-bit values. The port stores them as
 ``torch.int32`` and bitcasts with ``.view(torch.float32)`` where an
-instruction reads them as FP32.
+instruction reads them as FP32. A ``MachineState`` keeps its data words
+on the device of the execute backend and its sequencer fields (pc, the
+stacks, the halt flag and the counters) on the host: the ISA has no
+data-dependent control flow, so the sequencer never needs to read the
+card.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -52,6 +57,36 @@ class SMConfig:
         return max(1, (self.n_threads + N_SP - 1) // N_SP)
 
 
+@dataclasses.dataclass
+class MachineState:
+    """Architectural + profiling state of one SM (of an SM batch, with a
+    leading batch axis on every field, as ``executor.run_many`` returns).
+
+    ``regs``/``shmem``/``oob`` are tensors on the backend's device; the
+    sequencer fields and counters are host integers and numpy arrays."""
+
+    regs: torch.Tensor          # (MAX_THREADS, N_REGS) int32
+    shmem: torch.Tensor         # (shmem_depth,) int32
+    pc: Any = 0                 # int
+    ret_stack: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((RET_STACK_DEPTH,), np.int64))
+    ret_sp: Any = 0
+    loop_ctr: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((LOOP_STACK_DEPTH,), np.int64))
+    loop_sp: Any = 0
+    halted: Any = False
+    oob: torch.Tensor | None = None   # () bool — any out-of-range access
+    steps: Any = 0              # instructions executed
+    cycles: Any = 0             # sequencer cycles (cost model)
+    cycles_by_class: np.ndarray | None = None  # (NUM_CLASSES,) int64
+
+    def replace(self, **kw) -> "MachineState":
+        return dataclasses.replace(self, **kw)
+
+    def replace_regs(self, regs) -> "MachineState":
+        return dataclasses.replace(self, regs=regs)
+
+
 def as_u32_image(arr, depth: int, what: str = "memory",
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """Coerce a host array to a (..., depth) memory image of 32-bit words,
@@ -75,3 +110,51 @@ def as_u32_image(arr, depth: int, what: str = "memory",
     if pad:
         a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def init_state(cfg: SMConfig, shmem=None,
+               device: torch.device | str = "cpu") -> MachineState:
+    """Fresh single-SM state; ``shmem`` is None or one image."""
+    from .isa import NUM_CLASSES
+
+    if shmem is None:
+        sh = torch.zeros((cfg.shmem_depth,), dtype=torch.int32, device=device)
+    else:
+        sh = as_u32_image(shmem, cfg.shmem_depth, "shared-memory", device)
+    return MachineState(
+        regs=torch.zeros((MAX_THREADS, N_REGS), dtype=torch.int32,
+                         device=device),
+        shmem=sh,
+        oob=torch.zeros((), dtype=torch.bool, device=device),
+        cycles_by_class=np.zeros((NUM_CLASSES,), np.int64))
+
+
+def shmem_f32(state) -> torch.Tensor:
+    return state.shmem.view(torch.float32)
+
+
+def shmem_i32(state) -> torch.Tensor:
+    return state.shmem
+
+
+def regs_f32(state) -> torch.Tensor:
+    return state.regs.view(torch.float32)
+
+
+def regs_i32(state) -> torch.Tensor:
+    return state.regs
+
+
+def profile(state: MachineState) -> dict[str, Any]:
+    """Cycle profile by instruction class — the Tables III/IV view."""
+    from .isa import CLASS_NAMES
+
+    by = np.asarray(state.cycles_by_class)
+    total = int(by.sum())
+    return {
+        "total_cycles": total,
+        "instructions": int(state.steps),
+        "by_class": {n: int(c) for n, c in zip(CLASS_NAMES, by)},
+        "pct_by_class": {n: (100.0 * int(c) / total if total else 0.0)
+                         for n, c in zip(CLASS_NAMES, by)},
+    }

@@ -28,8 +28,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..assembler import Program, assemble
-from ..device import DeviceConfig, LaunchResult, launch
-from ..machine import SMConfig
+from ..device import DeviceConfig, Kernel, LaunchResult, launch
+from ..executor import run
+from ..machine import SMConfig, shmem_f32
 
 
 def _butterfly_block(tw_base: int) -> str:
@@ -139,6 +140,13 @@ def fft_program(n: int, unroll: bool = False, pad_hazards: bool = True) -> Progr
     return assemble(fft_asm(n, unroll, pad_hazards))
 
 
+def fft_kernel(n: int, unroll: bool = False) -> Kernel:
+    """n-point FFT as a ``Kernel`` (block of n/2 butterfly threads) for
+    multi-program launches; pair with per-block ``fft_shmem`` images."""
+    return Kernel(program=fft_program(n, unroll), block=n // 2,
+                  name=f"fft{n}")
+
+
 def bitrev_indices(n: int) -> np.ndarray:
     bits = n.bit_length() - 1
     idx = np.arange(n)
@@ -159,6 +167,22 @@ def fft_shmem(x: np.ndarray, depth: int = 3072) -> np.ndarray:
     img[2 * n:3 * n:2] = np.real(w).astype(np.float32)
     img[2 * n + 1:3 * n:2] = np.imag(w).astype(np.float32)
     return img
+
+
+def run_fft(x: np.ndarray, unroll: bool = False, pad_hazards: bool = True,
+            backend: str = "cuda"):
+    """Run the eGPU FFT on one SM (step engine); returns (X, final_state)."""
+    n = int(x.shape[0])
+    n_threads = n // 2
+    cfg = SMConfig(n_threads=n_threads, dim_x=n_threads,
+                   shmem_depth=max(3 * n, 64), max_steps=200_000)
+    prog = fft_program(n, unroll, pad_hazards)
+    state = run(cfg, prog, fft_shmem(x, cfg.shmem_depth), backend=backend)
+    mem = shmem_f32(state).cpu().numpy()
+    out_br = mem[0:2 * n:2] + 1j * mem[1:2 * n:2]
+    out = np.empty(n, dtype=np.complex64)
+    out[bitrev_indices(n)] = out_br  # undo DIF bit-reversal
+    return out, state
 
 
 def run_fft_batch(xs: np.ndarray, device: DeviceConfig | None = None,

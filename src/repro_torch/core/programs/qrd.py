@@ -53,8 +53,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..assembler import Program, assemble, auto_nop
-from ..device import DeviceConfig, LaunchResult, launch
-from ..machine import SMConfig
+from ..device import DeviceConfig, Kernel, LaunchResult, launch
+from ..executor import run
+from ..machine import SMConfig, shmem_f32
 
 A_BASE, Q_BASE, R_BASE, DOT_BASE, RECIP = 0, 256, 512, 768, 784
 
@@ -151,12 +152,36 @@ def qrd_program(loop: bool = False, **kw) -> Program:
     return assemble(qrd_asm_loop(**kw) if loop else qrd_asm(**kw))
 
 
+def qrd_kernel(loop: bool = False) -> Kernel:
+    """16x16 MGS QRD as a ``Kernel`` (256 threads, 16x16 thread space) for
+    multi-program launches; pair with per-block ``qrd_shmem`` images.
+
+    Note the unrolled variant needs ``SMConfig(imem_depth=1024)`` on the
+    device; the ``loop=True`` variant fits the default 512-word I-MEM.
+    """
+    return Kernel(program=qrd_program(loop), block=256, dim_x=16,
+                  name="qrd16")
+
+
 def qrd_shmem(a: np.ndarray, depth: int = 1024) -> np.ndarray:
     if a.shape != (16, 16):
         raise ValueError("the paper's benchmark is a 16x16 matrix")
     img = np.zeros(depth, dtype=np.float32)
     img[A_BASE:A_BASE + 256] = np.asarray(a, np.float32).T.reshape(-1)  # col-major
     return img
+
+
+def run_qrd(a: np.ndarray, loop: bool = False, backend: str = "cuda", **kw):
+    """Run the eGPU MGS QRD on one SM (step engine); returns (Q, R,
+    final_state)."""
+    cfg = SMConfig(n_threads=256, dim_x=16, shmem_depth=1024,
+                   imem_depth=1024, max_steps=200_000)
+    state = run(cfg, qrd_program(loop, **kw), qrd_shmem(a, cfg.shmem_depth),
+                backend=backend)
+    mem = shmem_f32(state).cpu().numpy()
+    q = mem[Q_BASE:Q_BASE + 256].reshape(16, 16).T  # col-major -> (i,k)
+    r = mem[R_BASE:R_BASE + 256].reshape(16, 16)    # row-major
+    return q, r, state
 
 
 def run_qrd_batch(As: np.ndarray, device: DeviceConfig | None = None,

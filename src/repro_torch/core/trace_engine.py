@@ -1,4 +1,4 @@
-"""The megakernel engine: a program lowered once, run as fused segments.
+"""The trace and megakernel engines: a program lowered once, then run.
 
 The eGPU ISA has no data-dependent control flow, so the sequence of
 instructions a block issues is a static property of the program
@@ -6,6 +6,12 @@ instructions a block issues is a static property of the program
 host, into a pre-decoded structure-of-arrays schedule: one row per
 issued data instruction (NOP and control rows carry no data effect and
 are compiled out; their cycle costs stay in the trace).
+
+The trace engine (``compile_program`` / ``run_wave_trace``) runs that
+schedule row by row through ``executor.make_data_handlers`` — the same
+handlers the step engine dispatches into after its own decode, so the
+two engines agree word for word — with no fetch, no decode and no
+sequencer on the way.
 
 The megakernel engine splits that schedule at the global-port rows
 (GLD/GST serialize on the one device-wide port): each maximal run of
@@ -32,6 +38,7 @@ from .executor import (
     DATA_SEL_OF_OP,
     FIELDS,
     FUSED_SELS,
+    ExecBackend,
     FusedRow,
     _decode,
     exec_segment,
@@ -69,6 +76,7 @@ class TraceSchedule:
     cols: dict[str, np.ndarray]
     by_class_base: np.ndarray       # (NUM_CLASSES,) trace.cycles_by_class(1)
     by_class_gmem: np.ndarray       # (NUM_CLASSES,) gmem-only cycle rows
+    rows: tuple                     # the rows as host-constant FusedRows
 
     @property
     def n_steps(self) -> int:
@@ -126,18 +134,59 @@ def _compile_cached(words_key: tuple, cfg: SMConfig) -> TraceSchedule:
     for t in trace.instrs:
         if t.gmem:
             by_gmem[t.klass] += t.cycles
+    table = np.stack([cols[f] for f in FIELDS], axis=1)
     return TraceSchedule(cfg=cfg, trace=trace, cols=cols,
-                         by_class_base=by_base, by_class_gmem=by_gmem)
+                         by_class_base=by_base, by_class_gmem=by_gmem,
+                         rows=tuple(FusedRow.from_fields(v) for v in table))
+
+
+def compile_program(program, cfg: SMConfig) -> TraceSchedule:
+    """Lower ``program`` (a Program or encoded word array) for ``cfg``;
+    cached per ``(program words, SMConfig)``."""
+    words = program.words if hasattr(program, "words") else program
+    return _compile_cached(tuple(int(w) for w in words), cfg)
+
+
+def _wave_index(x, device) -> torch.Tensor:
+    """A wave's (n,) BID/PID vector as an int32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+
+def _static_counters(state, trace: ProgramTrace, by_class: np.ndarray):
+    """The wave's counters from the static trace (the lockstep wave rule
+    charges each member for the whole wave's port drain,
+    ``trace.static_cycles``)."""
+    n = state.regs.shape[0]
+    return dict(halted=state.halted or trace.halted,
+                steps=state.steps + trace.steps,
+                cycles=state.cycles + trace.static_cycles(n),
+                cycles_by_class=state.cycles_by_class + by_class)
+
+
+def run_wave_trace(cfg: SMConfig, backend: ExecBackend,
+                   sched: TraceSchedule, block_idx, prog_idx, state):
+    """Run one homogeneous wave on the trace engine: every data row of the
+    schedule through the shared execute stage, on the device the state
+    lives on. Counters come from the static trace, identical to the step
+    engine's own count."""
+    device = state.regs.device
+    bidx = _wave_index(block_idx, device)
+    pidx = _wave_index(prog_idx, device)
+    s = (state.regs, state.shmem, state.gmem, state.oob)
+    for row in sched.rows:
+        s = make_data_handlers(cfg, backend, row, bidx, pidx)[row.sel](s)
+    regs, shmem, gmem, oob = s
+    n = state.regs.shape[0]
+    return dataclasses.replace(
+        state, regs=regs, shmem=shmem, gmem=gmem, oob=oob,
+        **_static_counters(state, sched.trace, sched.cycles_by_class(n)))
 
 
 # ---------------------------------------------------------------------------
 # segment megakernels: fused runs between global-port accesses
 # ---------------------------------------------------------------------------
-
-def _fused_rows(sched: TraceSchedule) -> tuple:
-    """A schedule's rows as host-constant ``executor.FusedRow``s."""
-    return tuple(FusedRow.from_fields(v) for v in sched.table)
-
 
 _GMEM_SELS = (8, 9)        # GLD/GST data-switch branches (the global port)
 
@@ -196,7 +245,7 @@ class MegakernelPlan:
 def _megakernel_cached(words_key: tuple, cfg: SMConfig) -> MegakernelPlan:
     sched = _compile_cached(words_key, cfg)
     return MegakernelPlan(key=words_key, cfg=cfg, sched=sched,
-                          items=_segment_items(_fused_rows(sched)))
+                          items=_segment_items(sched.rows))
 
 
 def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
@@ -206,19 +255,16 @@ def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
     return _megakernel_cached(tuple(int(w) for w in words), cfg)
 
 
-def run_wave_megakernel(plan: MegakernelPlan, block_idx, prog_idx, state):
+def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
+                        block_idx, prog_idx, state):
     """Run one homogeneous wave: fused segments through the segment
-    kernel, global-port rows through the gather/scatter kernels, on the
-    device the state lives on. Counters come from the static trace (the
-    lockstep wave rule charges each member for the whole wave's port
-    drain, ``trace.static_cycles``)."""
+    kernel, global-port rows through ``backend``'s gather/scatter, on the
+    device the state lives on. Counters come from the static trace."""
     n = state.regs.shape[0]
     device = state.regs.device
     table = plan.device_table(device)
-    bidx = torch.as_tensor(np.asarray(block_idx), dtype=torch.int32,
-                           device=device)
-    pidx = torch.as_tensor(np.asarray(prog_idx), dtype=torch.int32,
-                           device=device)
+    bidx = _wave_index(block_idx, device)
+    pidx = _wave_index(prog_idx, device)
     regs, shmem, gmem, oob = state.regs, state.shmem, state.gmem, state.oob
     for kind, payload in plan.items:
         if kind == "fused":
@@ -226,14 +272,11 @@ def run_wave_megakernel(plan: MegakernelPlan, block_idx, prog_idx, state):
             regs, shmem, oob = exec_segment(plan.cfg, table[start:stop],
                                             bidx, pidx, regs, shmem, oob)
         else:
-            handler = make_data_handlers(plan.cfg, payload)
+            handler = make_data_handlers(plan.cfg, backend, payload, bidx,
+                                         pidx)
             regs, shmem, gmem, oob = handler[payload.sel](
                 (regs, shmem, gmem, oob))
-    tr = plan.sched.trace
     return dataclasses.replace(
         state, regs=regs, shmem=shmem, gmem=gmem, oob=oob,
-        halted=state.halted or tr.halted,
-        steps=state.steps + tr.steps,
-        cycles=state.cycles + tr.static_cycles(n),
-        cycles_by_class=state.cycles_by_class
-        + plan.sched.cycles_by_class(n))
+        **_static_counters(state, plan.sched.trace,
+                           plan.sched.cycles_by_class(n)))

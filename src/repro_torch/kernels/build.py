@@ -36,11 +36,15 @@ _ENTRY_POINTS = {
                                  _I, _I, _I, _I, _I, _P)),
     "egpu_gather_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
     "egpu_scatter_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
+    "egpu_alu": ("alu", (_I, _I, _P, _P, _P, _P, _P, _I, _P)),
+    "egpu_gather": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),
+    "egpu_scatter": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
-launches = {"segment": 0, "gather_shared": 0, "scatter_shared": 0}
+launches = {"segment": 0, "gather_shared": 0, "scatter_shared": 0,
+            "alu": 0, "gather": 0, "scatter": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

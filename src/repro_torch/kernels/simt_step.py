@@ -1,5 +1,10 @@
-"""The megakernel path's three kernels: wrappers and plain versions.
+"""The memory kernels and the fused segment: wrappers and plain versions.
 
+  * ``simt_gather``         — LOD on the step path: each SM's lanes gather
+    from that SM's own shared-memory image (CUDA: ``csrc/smem.cu``);
+  * ``simt_scatter``        — STO on the step path: the single write port,
+    the highest enabled thread wins on an address collision (CUDA:
+    ``csrc/smem.cu``);
   * ``simt_segment``        — a fused run of SM-local rows over an SM
     batch, registers and shared memory resident on chip for the whole run
     (CUDA: ``csrc/segment.cu``; plain: ``core.executor.apply_segment_rows``);
@@ -93,6 +98,90 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
 
 
 # ---------------------------------------------------------------------------
+# the per-SM shared-memory port (LOD/STO rows of the step and trace engines)
+# ---------------------------------------------------------------------------
+
+def gather_plain(mem, addr, mask, old):
+    """LOD: ``out[s, t] = mem[s, addr[s, t]]`` where ``mask``, else ``old``
+    (``addr`` pre-clipped to the image)."""
+    return torch.where(mask, torch.gather(mem, 1, addr.to(torch.int64)), old)
+
+
+def scatter_plain(mem, addr, vals, do):
+    """STO: per SM, among enabled writers to one address the highest
+    thread wins; disabled lanes write nothing."""
+    from ..core.executor import _last_writer_write
+
+    return _last_writer_write(mem, addr, vals, do)
+
+
+def scatter_smem_bytes(depth: int) -> int:
+    """Dynamic shared memory of one scatter CTA: the winner array."""
+    return 4 * depth
+
+
+def check_gather_args(mem, addr, mask, old) -> None:
+    """Raise unless the LOD kernel takes these tensors as they are."""
+    n, depth = mem.shape
+    dev = mem.device
+    _check(mem, "mem", torch.int32, (n, depth), dev)
+    for t, name, dt in ((addr, "addr", torch.int32),
+                        (mask, "mask", torch.bool), (old, "old", torch.int32)):
+        _check(t, name, dt, (n, old.shape[1]), dev)
+
+
+def check_scatter_args(mem, addr, vals, do) -> None:
+    """Raise unless the STO kernel takes these tensors as they are."""
+    n, depth = mem.shape
+    dev = mem.device
+    _check(mem, "mem", torch.int32, (n, depth), dev)
+    k = vals.shape[1]
+    for t, name, dt in ((addr, "addr", torch.int32),
+                        (vals, "vals", torch.int32), (do, "do", torch.bool)):
+        _check(t, name, dt, (n, k), dev)
+    if not 1 <= k <= 1024:
+        raise ValueError(f"{k} lanes per SM do not fit one CTA")
+    if scatter_smem_bytes(depth) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"a {depth}-word shared memory needs "
+                         f"{scatter_smem_bytes(depth)} bytes of shared "
+                         f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
+
+
+def simt_gather(mem, addr, mask, old):
+    """LOD gather. ``mem`` (n, depth) int32; ``addr`` (n, k) int32 within
+    ``[0, depth)``; ``mask`` (n, k) bool; ``old`` (n, k) int32. Returns the
+    new destination column."""
+    if not mem.is_cuda:
+        return gather_plain(mem, addr, mask, old)
+    check_gather_args(mem, addr, mask, old)
+    n, depth = mem.shape
+    out = torch.empty_like(old)
+    fn = build.entry_point("egpu_gather")
+    build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), mask.data_ptr(),
+                   old.data_ptr(), out.data_ptr(), old.shape[1], old.numel(),
+                   _stream()), "gather")
+    build.launches["gather"] += 1
+    return out
+
+
+def simt_scatter(mem, addr, vals, do):
+    """STO scatter. ``mem`` (n, depth) int32; ``addr``/``vals`` (n, k)
+    int32, ``addr`` within ``[0, depth)`` where ``do``; ``do`` (n, k) bool.
+    Returns the new shared-memory images; ``mem`` is not modified."""
+    if not mem.is_cuda:
+        return scatter_plain(mem, addr, vals, do)
+    check_scatter_args(mem, addr, vals, do)
+    n, depth = mem.shape
+    k = vals.shape[1]
+    out = torch.empty_like(mem)
+    fn = build.entry_point("egpu_scatter")
+    build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), vals.data_ptr(),
+                   do.data_ptr(), out.data_ptr(), n, k, _stream()), "scatter")
+    build.launches["scatter"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the device-wide global-memory port
 # ---------------------------------------------------------------------------
 
@@ -111,17 +200,31 @@ def scatter_shared_plain(gmem, addr, vals, do):
                               vals.reshape(1, -1), do.reshape(1, -1))[0]
 
 
+def check_gather_shared_args(gmem, addr, mask, old) -> None:
+    """Raise unless the GLD kernel takes these tensors as they are."""
+    dev = gmem.device
+    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
+    for t, name, dt in ((addr, "addr", torch.int32),
+                        (mask, "mask", torch.bool), (old, "old", torch.int32)):
+        _check(t, name, dt, old.shape, dev)
+
+
+def check_scatter_shared_args(gmem, addr, vals, do) -> None:
+    """Raise unless the GST kernel takes these tensors as they are."""
+    dev = gmem.device
+    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
+    for t, name, dt in ((addr, "addr", torch.int32),
+                        (vals, "vals", torch.int32), (do, "do", torch.bool)):
+        _check(t, name, dt, vals.shape, dev)
+
+
 def simt_gather_shared(gmem, addr, mask, old):
     """GLD gather. ``gmem`` (gdepth,) int32; ``addr`` (n, 512) int32
     within ``[0, gdepth)``; ``mask`` (n, 512) bool; ``old`` (n, 512)
     int32. Returns the new destination column."""
     if not gmem.is_cuda:
         return gather_shared_plain(gmem, addr, mask, old)
-    dev = gmem.device
-    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
-    for t, name, dt in ((addr, "addr", torch.int32),
-                        (mask, "mask", torch.bool), (old, "old", torch.int32)):
-        _check(t, name, dt, old.shape, dev)
+    check_gather_shared_args(gmem, addr, mask, old)
     out = torch.empty_like(old)
     fn = build.entry_point("egpu_gather_shared")
     build.check(fn(gmem.data_ptr(), gmem.shape[0], addr.data_ptr(),
@@ -137,11 +240,7 @@ def simt_scatter_shared(gmem, addr, vals, do):
     bool. Returns the new global-memory image."""
     if not gmem.is_cuda:
         return scatter_shared_plain(gmem, addr, vals, do)
-    dev = gmem.device
-    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
-    for t, name, dt in ((addr, "addr", torch.int32),
-                        (vals, "vals", torch.int32), (do, "do", torch.bool)):
-        _check(t, name, dt, vals.shape, dev)
+    check_scatter_shared_args(gmem, addr, vals, do)
     out = gmem.clone()
     winner = torch.full_like(gmem, -1)
     fn = build.entry_point("egpu_scatter_shared")

@@ -12,9 +12,11 @@ import torch
 from repro_torch.core import SMConfig
 from repro_torch.core.executor import apply_segment_rows
 from repro_torch.kernels import fuzz
+from repro_torch.kernels.simt_alu import alu_plain, simt_alu
 from repro_torch.kernels.simt_step import (
-    gather_shared_plain, scatter_shared_plain, simt_gather_shared,
-    simt_scatter_shared, simt_segment)
+    gather_plain, gather_shared_plain, scatter_plain, scatter_shared_plain,
+    simt_gather, simt_gather_shared, simt_scatter, simt_scatter_shared,
+    simt_segment)
 
 
 @pytest.fixture
@@ -62,3 +64,36 @@ def test_gmem_kernels_match_plain_versions(dev, span):
                        gather_shared_plain(gmem, addr, mask, vals))
     assert torch.equal(simt_scatter_shared(gmem, addr, vals, mask),
                        scatter_shared_plain(gmem, addr, vals, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("typ", [0, 1, 2])
+def test_alu_kernel_matches_plain_version(dev, typ):
+    rng = np.random.default_rng(typ)
+    a, b = (_words(fuzz.random_f32_words(rng, (4, 512)), dev)
+            for _ in range(2))
+    mask = torch.from_numpy(rng.random((4, 512)) < 0.7).to(dev)
+    old = _words(rng.integers(0, 1 << 32, (4, 512), dtype=np.uint64)
+                 .astype(np.uint32), dev)
+    for op in range(1, 10):
+        assert torch.equal(simt_alu(op, typ, a, b, mask, old),
+                           alu_plain(op, typ, a, b, mask, old))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,span", [(64, 64), (3072, 3072), (1024, 5)])
+def test_smem_kernels_match_plain_versions(dev, depth, span):
+    rng = np.random.default_rng(depth + span)
+    mem = _words(rng.integers(0, 1 << 32, (4, depth), dtype=np.uint64)
+                 .astype(np.uint32), dev)
+    addr = torch.from_numpy(rng.integers(0, span, (4, 512))
+                            .astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((4, 512)) < 0.7).to(dev)
+    vals = _words(rng.integers(0, 1 << 32, (4, 512), dtype=np.uint64)
+                  .astype(np.uint32), dev)
+    assert torch.equal(simt_gather(mem, addr, mask, vals),
+                       gather_plain(mem, addr, mask, vals))
+    # disabled lanes carry out-of-range addresses the kernel must not read
+    wild = torch.where(mask, addr, torch.full_like(addr, -(1 << 30)))
+    assert torch.equal(simt_scatter(mem, wild, vals, mask),
+                       scatter_plain(mem, wild, vals, mask))

@@ -129,9 +129,12 @@ def test_state_carry_across_roundtrips():
 def test_cuda_backend_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.ones(64, np.float32)
-    dev = DeviceConfig(n_sms=2, global_mem_depth=256, engine="megakernel")
+    for engine in ("megakernel", "step", "trace"):
+        dev = DeviceConfig(n_sms=2, global_mem_depth=256, engine=engine)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            launch_saxpy(1.0, x, x, device=dev, block=64)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        launch_saxpy(1.0, x, x, device=dev, block=64)
+        launch_saxpy(1.0, x, x)
 
 
 def test_engines_outside_the_slice_raise():
@@ -139,16 +142,22 @@ def test_engines_outside_the_slice_raise():
     dev = DeviceConfig(n_sms=2, global_mem_depth=1024, backend="cpu")
     buffers = {"x": np.ones(256, np.float32), "y": np.ones(256, np.float32),
                "z": np.zeros(256, np.float32), "a": np.ones(1, np.float32)}
-    for engine in ("step", "trace"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch(dev, prog, grid=(4,), block=64, buffers=buffers,
-                   engine=engine)
     # "auto" keeps the reference's ladder: saxpy is too short to fuse, so
-    # it resolves to the step engine, which this slice refuses by name
-    with pytest.raises(NotImplementedError, match="megakernel-too-small"):
-        launch(dev, prog, grid=(4,), block=64, buffers=buffers)
-    # a heterogeneous grid needs the merged waves of a later slice
+    # it resolves to the step engine, which now runs it
+    res = launch(dev, prog, grid=(4,), block=64, buffers=buffers)
+    assert res.engine == "step"
+    assert res.engine_fallback == "megakernel-too-small"
+    assert np.array_equal(res.buffer("z").numpy(), np.full(256, 2.0,
+                                                           np.float32))
+    # the step engine runs a two-program grid, program-major
     mixed = [Kernel(prog, block=64), Kernel(fft_program(16), block=8)]
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        launch(dev, programs=mixed, grid_map=[0, 1], buffers=buffers,
-               engine="megakernel")
+    res = launch(dev, programs=mixed, grid_map=[0, 1], buffers=buffers,
+                 engine="step")
+    assert res.engine == "step" and res.halted
+    assert res.program_names == ("k0", "k1")
+    # a heterogeneous grid on the compiled engines needs the merged waves
+    # of a later slice
+    for engine in ("trace", "megakernel"):
+        with pytest.raises(NotImplementedError, match="heterogeneous"):
+            launch(dev, programs=mixed, grid_map=[0, 1], buffers=buffers,
+                   engine=engine)

@@ -1,6 +1,6 @@
 """The port's timing model against the JAX reference: static program traces,
-wave packing and the block schedulers, and the golden cycle entries of the
-megakernel slice reproduced by the port's own launches."""
+wave packing and the block schedulers, and the golden cycle entries the
+port's engines reach, reproduced by the port's own launches."""
 import json
 from pathlib import Path
 
@@ -18,7 +18,11 @@ from repro_torch.core import DeviceConfig, SMConfig
 from repro_torch.core import cycles as t_cycles
 from repro_torch.core import packing as t_packing
 from repro_torch.core import scheduler as t_sched
-from repro_torch.core.programs import launch_saxpy, run_fft_batch, run_qrd_batch
+from repro_torch.core.programs import (cholesky_imem_depth, launch_fft_qrd,
+                                       launch_masked_reduction,
+                                       launch_reduction, launch_saxpy,
+                                       mixed_device, run_cholesky_batch,
+                                       run_fft_batch, run_qrd_batch)
 
 GOLDEN = json.loads((Path(__file__).parent / "golden_cycles.json").read_text())
 
@@ -107,19 +111,24 @@ def test_schedule_blocks_matches_reference(mode, seed):
 
 
 def _record(res):
-    return {"schedule": res.schedule, "cycles": int(res.cycles),
-            "steps": int(res.steps),
-            "static_cycles": int(res.static_cycles),
-            "gmem": int(res.cycles_by_class[-1]),
-            "wave_cycles": [int(c) for c in res.wave_cycles]}
+    # the golden suite's record: dynamic dispatch has no waves to list
+    out = {"schedule": res.schedule, "cycles": int(res.cycles),
+           "steps": int(res.steps),
+           "static_cycles": int(res.static_cycles),
+           "gmem": int(res.cycles_by_class[-1])}
+    if res.n_waves:
+        out["wave_cycles"] = [int(c) for c in res.wave_cycles]
+    return out
 
 
-# the golden shapes, built as the golden suite builds them; SAXPY asks for
-# the megakernel, which "auto" declines on so short a program
-def _saxpy(n_sms):
+# the golden shapes, built as the golden suite builds them. SAXPY runs both
+# on the megakernel and through "auto", which resolves so short a program
+# to the step engine; the multi-program grids and Cholesky ask for the step
+# engine (timing comes from the static traces on every engine)
+def _saxpy(n_sms, engine="megakernel"):
     x = np.arange(256, dtype=np.float32)
     dev = DeviceConfig(n_sms=n_sms, global_mem_depth=1024, backend="cpu",
-                       engine="megakernel", sm=SMConfig(max_steps=10_000))
+                       engine=engine, sm=SMConfig(max_steps=10_000))
     return launch_saxpy(2.0, x, np.ones_like(x), device=dev, block=64)[1]
 
 
@@ -137,15 +146,67 @@ def _qrd(n_sms):
     return run_qrd_batch(As, device=dev)[2]
 
 
+def _reduction_fused(n_sms):
+    dev = DeviceConfig(n_sms=n_sms, global_mem_depth=2048, backend="cpu",
+                       engine="step", sm=SMConfig(max_steps=50_000))
+    return launch_reduction(np.ones(1024, np.float32), device=dev,
+                            block=256, fused=True)[1]
+
+
+def _cholesky(n_sms):
+    rng = np.random.default_rng(0)
+    g = rng.standard_normal((16, 16)).astype(np.float32)
+    As = np.stack([(g @ g.T + (16.0 + i) * np.eye(16)).astype(np.float32)
+                   for i in range(5)])
+    bs = np.stack([np.ones(16, np.float32) * (i + 1) for i in range(5)])
+    dev = DeviceConfig(n_sms=n_sms, backend="cpu", engine="step",
+                       sm=SMConfig(shmem_depth=1024,
+                                   imem_depth=cholesky_imem_depth(True),
+                                   max_steps=200_000))
+    return run_cholesky_batch(As, bs, device=dev)[2]
+
+
+def _masked_reduction(n_sms):
+    x = np.linspace(-4.0, 4.0, 1024, dtype=np.float32)
+    dev = DeviceConfig(n_sms=n_sms, global_mem_depth=2048, backend="cpu",
+                       engine="step", sm=SMConfig(max_steps=50_000))
+    return launch_masked_reduction(x, 0.5, clip=(-2.0, 2.0), device=dev,
+                                   block=256)[2]
+
+
+def _mixed_packed(n_sms, schedule):
+    xs = np.ones((6, 64), np.complex64)
+    As = np.stack([np.eye(16, dtype=np.float32)] * 3)
+    return launch_fft_qrd(xs, As, device=mixed_device(64, n_sms=n_sms,
+                                                      backend="cpu"),
+                          schedule=schedule, interleave=False, engine="step",
+                          packing="length")[3]
+
+
+# test id -> (golden entry, launch, the engine it must have run on)
 CASES = {}
 for _n in (1, 2, 4):
-    CASES[f"saxpy256_b64[{_n}sm]"] = (lambda n=_n: _saxpy(n))
-    CASES[f"fft64_batch5[{_n}sm]"] = (lambda n=_n: _fft(n))
-    CASES[f"qrd16_batch5[{_n}sm]"] = (lambda n=_n: _qrd(n))
+    CASES[f"saxpy256_b64[{_n}sm]"] = (
+        f"saxpy256_b64[{_n}sm]", lambda n=_n: _saxpy(n), "megakernel")
+    CASES[f"fft64_batch5[{_n}sm]"] = (
+        f"fft64_batch5[{_n}sm]", lambda n=_n: _fft(n), "megakernel")
+    CASES[f"qrd16_batch5[{_n}sm]"] = (
+        f"qrd16_batch5[{_n}sm]", lambda n=_n: _qrd(n), "megakernel")
+    CASES[f"saxpy256_b64[{_n}sm,auto]"] = (
+        f"saxpy256_b64[{_n}sm]", lambda n=_n: _saxpy(n, "auto"), "step")
+    for _name, _fn in (("reduction1024_fused", _reduction_fused),
+                       ("cholesky16_solve_batch5", _cholesky),
+                       ("masked_reduction1024", _masked_reduction)):
+        CASES[f"{_name}[{_n}sm]"] = (
+            f"{_name}[{_n}sm]", lambda n=_n, f=_fn: f(n), "step")
+    for _s in ("dynamic", "static"):
+        _key = f"mixed_fft_qrd[{_n}sm,{_s},packed,step-engine]"
+        CASES[_key] = (_key, lambda n=_n, s=_s: _mixed_packed(n, s), "step")
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_golden_cycles_reproduced_by_port(name):
-    res = CASES[name]()
-    assert res.engine == "megakernel"
-    assert _record(res) == GOLDEN[name]
+    golden_name, fn, engine = CASES[name]
+    res = fn()
+    assert res.engine == engine
+    assert _record(res) == GOLDEN[golden_name]
