@@ -14,7 +14,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      ``==`` over seeded random inputs (address collisions, masked and
      out-of-range lanes, snooped operands, guarded rows, NaN/infinite/
      denormal FP32 words, INVSQR, every ALU op and type, shared-memory
-     depths 64, 1024 and 3072);
+     depths 64, 1024 and 3072; the kernel layer's dot over fuzzed words,
+     FFT at N = 2...4096, QRD at n = 5...32), and the flash kernel
+     within 2e-5 in float32 and one bf16 ulp in bfloat16;
   3. drives three paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
      width, through the program entry points, each with the launch counts
      set to 0 just before it and read just after:
@@ -25,14 +27,27 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
          the Cholesky-16 solve over 16 and the fused two-program
          reduction of 1024 elements;
        * trace-path, the trace engine: FFT-64 and QRD-16, which must equal
-         the step path's runs word for word.
-     Each launch is repeated with ``backend="cpu"`` and must give equal
-     state, counters and profile; the numerics are checked against numpy;
-     every kernel of a path must have launched in it;
+         the step path's runs word for word;
+       * kernel-path, the kernel layer's entry points (``kernels.ops``):
+         the QRD solver of examples/qrd_solver.py over 4096 16x16 systems,
+         QRD-32 x 1024 and QRD-8 x 4096; the spectral pipeline of
+         examples/fft_pipeline.py over 4096 frames and FFT-1024 x 1024;
+         ``dot`` at 16 x 512 and 4096 x 512; ``flash`` at (4, 256, 64) and
+         (32, 1024, 128) causal and (4, 128, 64) non-causal; each held
+         against its plain version on the same inputs, and QRD and FFT
+         cross-checked against the simulated eGPU on the card.
+     Each launch of the first three paths is repeated with
+     ``backend="cpu"`` and must give equal state, counters and profile;
+     the numerics are checked against numpy; every kernel of a path must
+     have launched in it;
   4. reproduces the [4sm] golden entries the port reaches from
      tests/golden_cycles.json;
   5. times each kernel at its path's shapes with CUDA events beside its
-     plain version and its least possible time (its bound);
+     plain version, its least possible time (its bound) and, where one
+     PyTorch call computes the same function, that call (timed only);
+     the kernel and that call are timed once more on the card alone
+     (``device_ms``: queued behind a sleep kernel, so the host's cost
+     per launch is hidden);
   6. prints the ``kernels`` JSON line, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -40,6 +55,7 @@ Any failure raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -62,6 +78,10 @@ REPLACES = {
     "alu": "src/repro/kernels/simt_alu.py:68",
     "gather": "src/repro/kernels/simt_step.py:53",
     "scatter": "src/repro/kernels/simt_step.py:93",
+    "dot": "src/repro/kernels/wavefront_dot.py:33",
+    "fft": "src/repro/kernels/fft_r2.py:68",
+    "qrd": "src/repro/kernels/mgs_qrd.py:61",
+    "flash": "src/repro/kernels/flash_attention.py:76",
 }
 SOURCES = {
     "segment": "src/repro_torch/kernels/csrc/segment.cu",
@@ -70,6 +90,10 @@ SOURCES = {
     "alu": "src/repro_torch/kernels/csrc/alu.cu",
     "gather": "src/repro_torch/kernels/csrc/smem.cu",
     "scatter": "src/repro_torch/kernels/csrc/smem.cu",
+    "dot": "src/repro_torch/kernels/csrc/dot.cu",
+    "fft": "src/repro_torch/kernels/csrc/fft.cu",
+    "qrd": "src/repro_torch/kernels/csrc/qrd.cu",
+    "flash": "src/repro_torch/kernels/csrc/flash.cu",
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -77,7 +101,17 @@ PATH_KERNELS = {
     "step-path": ("alu", "gather", "scatter", "gather_shared",
                   "scatter_shared"),
     "trace-path": ("alu", "gather", "scatter"),
+    "kernel-path": ("dot", "fft", "qrd", "flash"),
 }
+# the flash kernel against its plain version (float32: another summation
+# order than the plain version's matmul; bfloat16: one ulp of the value)
+FLASH_ATOL = 2e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# the QRD solver against numpy.linalg.solve in float64: a backward-stable
+# solve in float32 is off by about eps * cond(A) * max|x| (eps = 2**-24),
+# and some of 4096 random systems A + 4 I are nearly singular, so each
+# system is held to SOLVE_K times that
+SOLVE_K = 4.0
 
 
 def card_line() -> str:
@@ -117,6 +151,44 @@ def cuda_time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_device_ms(fn, iters: int = 50) -> float:
+    """Mean milliseconds per call on the card alone: a sleep kernel holds
+    the stream while the host queues the ``iters`` calls, so they run
+    back to back and the host's cost between them is hidden. (A call that
+    synchronises with the host is timed as ``cuda_time_ms`` times it.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(int(2 * queue_ms * _sleep_cycles_per_ms()) + 100_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    import torch
+
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    stop.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(stop)
 
 
 class Phases:
@@ -236,6 +308,76 @@ def check_per_op(rng, dev) -> dict[str, int]:
     return worst
 
 
+def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float]:
+    """The kernel layer's kernels against their plain versions: dot over
+    fuzzed words with random masks in both modes, FFT at every N = 2...4096
+    in both output orders, QRD at n = 5, 8, 16, 31, 32 (all ``==``), and
+    flash causal and not, float32 and bfloat16, with odd widths and
+    blocks narrower than a CTA's rows (within FLASH_ATOL and one bf16
+    ulp). Returns the largest error of each (float32 for flash) and the
+    largest bfloat16 flash error."""
+    import torch
+    from repro_torch.kernels import fuzz
+    from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
+    from repro_torch.kernels.wavefront_dot import (wavefront_dot,
+                                                   wavefront_dot_plain)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    words = lambda x: x.view(torch.int32)  # noqa: E731
+    worst = {"dot": 0, "fft": 0, "qrd": 0, "flash": 0.0}
+    for n_sm in (8, 24, 4096):
+        for mode in (0, 1):
+            a, b = (t(fuzz.random_f32_words(rng, (n_sm, 512)).view(
+                np.float32)) for _ in range(2))
+            mask = t(rng.random((n_sm, 512)) < 0.6)
+            worst["dot"] = max(worst["dot"], words_equal(
+                f"dot n_sm={n_sm} mode={mode}",
+                words(wavefront_dot(a, b, mask, mode)),
+                words(wavefront_dot_plain(a, b, mask, mode))))
+    for log2n in range(1, 13):
+        n = 1 << log2n
+        re, im = (t(rng.standard_normal((8, n)).astype(np.float32))
+                  for _ in range(2))
+        for natural in (True, False):
+            for g, w in zip(fft_r2(re, im, natural=natural),
+                            fft_r2_plain(re, im, natural)):
+                worst["fft"] = max(worst["fft"], words_equal(
+                    f"fft N={n} natural={natural}", words(g), words(w)))
+    for n in (5, 8, 16, 31, 32):
+        a = t(rng.standard_normal((64, n, n)).astype(np.float32))
+        for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
+            worst["qrd"] = max(worst["qrd"], words_equal(
+                f"qrd n={n}", words(g), words(w)))
+    bf16 = 0.0
+    for bh, S, D, blk_q, blk_k in ((3, 256, 64, 64, 32),
+                                   (2, 512, 128, 128, 128),
+                                   (4, 128, 64, 32, 64),
+                                   (2, 96, 33, 16, 48)):
+        qkv = [t(rng.standard_normal((bh, S, D)).astype(np.float32))
+               for _ in range(3)]
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (x.to(dtype) for x in qkv)
+                got = flash_attention(q, k, v, causal=causal, blk_q=blk_q,
+                                      blk_k=blk_k).float()
+                want = flash_attention_plain(q, k, v, causal, blk_q,
+                                             blk_k).float()
+                err = float((got - want).abs().max())
+                what = f"flash {(bh, S, D)} causal={causal} {dtype}"
+                if dtype == torch.float32:
+                    if not err <= FLASH_ATOL:
+                        raise AssertionError(f"{what}: {err} > {FLASH_ATOL}")
+                    worst["flash"] = max(worst["flash"], err)
+                else:
+                    torch.testing.assert_close(got, want, rtol=BF16_RTOL,
+                                               atol=BF16_ATOL, msg=what)
+                    bf16 = max(bf16, err)
+    return worst, bf16
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the paths
 # ---------------------------------------------------------------------------
@@ -319,9 +461,8 @@ def main_path(rng):
         n_sms=4, backend="cpu", sm=sm))
     assert res.engine == "megakernel" and res.engine_fallback is None
     same_launch("qrd16", res, res_c)
-    for b in range(16):
-        np.testing.assert_allclose(Q[b] @ R[b], As[b], atol=5e-5)
-        np.testing.assert_allclose(Q[b].T @ Q[b], np.eye(16), atol=5e-5)
+    check_qr(Q.astype(np.float64), R.astype(np.float64),
+             As.astype(np.float64))
     assert res.halted and not bool(res.oob.any())
     assert got["segment"] > 0, got
     per["qrd16"] = dict(launches=got, cycles=res.cycles, waves=res.n_waves)
@@ -351,10 +492,14 @@ def check_qr(Q, R, As) -> None:
     """Q R reproduces A (MGS is backward stable); Q's loss of
     orthogonality grows with the condition number of A, as MGS's does
     (about eps * cond(A), eps = 2**-24)."""
-    for b in range(As.shape[0]):
-        np.testing.assert_allclose(Q[b] @ R[b], As[b], atol=5e-5)
-        tol = max(5e-5, 16 * 2.0**-24 * np.linalg.cond(As[b]))
-        np.testing.assert_allclose(Q[b].T @ Q[b], np.eye(16), atol=tol)
+    n = As.shape[-1]
+    np.testing.assert_allclose(Q @ R, As, atol=5e-5)
+    orth = np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(n)).max(axis=(1, 2))
+    tol = np.maximum(5e-5, 16 * 2.0**-24 * np.linalg.cond(As))
+    if not (orth <= tol).all():
+        b = int(np.argmax(orth - tol))
+        raise AssertionError(f"QRD-{n}: Q^T Q of matrix {b} is {orth[b]} "
+                             f"from I, above {tol[b]}")
 
 
 def spd_batch(rng, count: int):
@@ -467,6 +612,148 @@ def trace_path(keep):
         assert np.array_equal(res.cycles_by_class, step_res.cycles_by_class)
         per[name] = dict(launches=got, cycles=res.cycles, waves=res.n_waves)
     return check_path("trace-path", per), per
+
+
+def back_substitute(r, y):
+    """Solve R x = y for upper-triangular R in float64: r (B, n, n), y
+    (B, n) (examples/qrd_solver.py)."""
+    n = r.shape[-1]
+    r = np.asarray(r, np.float64)
+    y = np.asarray(y, np.float64)
+    x = np.zeros(y.shape, np.float64)
+    for i in range(n - 1, -1, -1):
+        x[:, i] = (y[:, i] - np.einsum("bj,bj->b", r[:, i, i + 1:],
+                                       x[:, i + 1:])) / r[:, i, i]
+    return x
+
+
+def kernel_path(rng):
+    """The kernel layer's entry points at card scale, through
+    ``repro_torch.kernels.ops`` with numpy inputs (so on the card): the two
+    example flows, random QRD and FFT batches, ``dot`` and ``flash``, each
+    held against its plain version on the same card tensors (``==`` for
+    dot, QRD and FFT, FLASH_ATOL for flash). Returns the path's launch
+    counts, the per-workload records and the largest float32 error of
+    flash against its plain version."""
+    import torch
+    from repro_torch.core.programs import run_fft, run_qrd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft_r2 import fft_r2_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mgs_qrd import mgs_qrd_plain
+    from repro_torch.kernels.wavefront_dot import wavefront_dot_plain
+
+    to_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+    def same_as_plain(name, got, want):
+        # the kernels' outputs word for word against their plain versions
+        # on the same card tensors (launched outside on_card's counts)
+        for g, w in zip(got, want):
+            words_equal(name, g.view(torch.int32), w.view(torch.int32))
+
+    per = {}
+
+    # the QRD solver of examples/qrd_solver.py: 4096 systems of 16 x 16
+    # (A += 4 I), Q^T b and back-substitution on the host in float64, and
+    # matrix 0 on the simulated eGPU (the ISS) on the card
+    A = (rng.standard_normal((4096, 16, 16))
+         + 4 * np.eye(16)).astype(np.float32)
+    b = rng.standard_normal((4096, 16)).astype(np.float32)
+    ((q, r), (q0, r0, _)), got = on_card(lambda: (ops.qrd(A),
+                                                  run_qrd(A[0])))
+    same_as_plain("ops.qrd solver x 4096", (q, r), mgs_qrd_plain(to_card(A)))
+    q, r = q.cpu().numpy(), r.cpu().numpy()
+    x = back_substitute(r, np.einsum("bij,bi->bj", q.astype(np.float64), b))
+    x_np = np.linalg.solve(A.astype(np.float64),
+                           b.astype(np.float64)[..., None])[..., 0]
+    err = np.abs(x - x_np).max(axis=1)
+    ratio = err / (2.0**-24 * np.linalg.cond(A.astype(np.float64))
+                   * np.abs(x_np).max(axis=1))
+    if not (ratio <= SOLVE_K).all():
+        worst = int(np.argmax(ratio))
+        raise AssertionError(f"QRD solver: system {worst} is off by "
+                             f"{err[worst]}, {ratio[worst]} eps cond |x|")
+    np.testing.assert_allclose(q[0], q0, atol=2e-4)
+    np.testing.assert_allclose(r[0], r0, atol=2e-4)
+    per["qrd16_solve_x4096"] = dict(
+        launches=got, max_abs_err_vs_numpy=float(err.max()),
+        median_abs_err_vs_numpy=float(np.median(err)),
+        max_err_over_eps_cond_x=float(ratio.max()))
+
+    # random QRD-32 x 1024 and QRD-8 x 4096
+    for n, batch in ((32, 1024), (8, 4096)):
+        As = rng.standard_normal((batch, n, n)).astype(np.float32)
+        (q, r), got = on_card(lambda: ops.qrd(As))
+        same_as_plain(f"ops.qrd {n} x {batch}", (q, r),
+                      mgs_qrd_plain(to_card(As)))
+        check_qr(q.cpu().numpy().astype(np.float64),
+                 r.cpu().numpy().astype(np.float64), As.astype(np.float64))
+        per[f"qrd{n}_x{batch}"] = dict(launches=got)
+
+    # the spectral pipeline of examples/fft_pipeline.py: 4096 frames of
+    # the 256-sample two-tone signal, each with its own noise; frame 0 on
+    # the simulated eGPU on the card
+    n = 256
+    t = np.arange(n) / n
+    tones = np.sin(2 * np.pi * 17 * t) + 0.5 * np.sin(2 * np.pi * 49 * t)
+    frames = (tones + 0.05 * rng.standard_normal((4096, n))).astype(
+        np.float32)
+    ((fr, fi), (x0, _)), got = on_card(lambda: (
+        ops.fft(frames, np.zeros_like(frames)),
+        run_fft(frames[0].astype(np.complex64))))
+    same_as_plain("ops.fft pipeline x 4096", (fr, fi), fft_r2_plain(
+        to_card(frames), torch.zeros_like(to_card(frames))))
+    X = fr.cpu().numpy() + 1j * fi.cpu().numpy()
+    peaks = np.sort(np.argsort(np.abs(X[:, :n // 2]), axis=1)[:, -2:], axis=1)
+    if not (peaks == [17, 49]).all():
+        bad = int(np.argmax((peaks != [17, 49]).any(axis=1)))
+        raise AssertionError(f"frame {bad}: peaks at {peaks[bad]}")
+    np.testing.assert_allclose(X[0], x0, rtol=0,
+                               atol=1e-4 * np.abs(x0).max())
+    per["fft256_pipeline_x4096"] = dict(launches=got)
+
+    # random complex FFT-1024 x 1024 against torch.fft
+    z = (rng.standard_normal((1024, 1024))
+         + 1j * rng.standard_normal((1024, 1024))).astype(np.complex64)
+    (zr, zi), got = on_card(lambda: ops.fft(z.real, z.imag))
+    same_as_plain("ops.fft 1024 x 1024", (zr, zi),
+                  fft_r2_plain(to_card(z.real), to_card(z.imag)))
+    want = torch.fft.fft(torch.from_numpy(z).cuda(), dim=-1)
+    scale = float(want.real.abs().max())
+    torch.testing.assert_close(zr, want.real, rtol=0, atol=3e-5 * scale)
+    torch.testing.assert_close(zi, want.imag, rtol=0, atol=3e-5 * scale)
+    per["fft1024_x1024"] = dict(launches=got)
+
+    # dot at the kernel bench's 16 x 512 and at 4096 x 512
+    for n_sm in (16, 4096):
+        a, bb = (rng.standard_normal((n_sm, 512)).astype(np.float32)
+                 for _ in range(2))
+        out, got = on_card(lambda: ops.dot(a, bb))
+        at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(bb).cuda()
+        words_equal(f"ops.dot {n_sm} x 512", out.view(torch.int32),
+                    wavefront_dot_plain(at, bt, torch.ones_like(
+                        at, dtype=torch.bool)).view(torch.int32))
+        per[f"dot_{n_sm}x512"] = dict(launches=got)
+
+    # flash at the kernel bench's shape, at Yi-6B's 32 heads of 128 over
+    # 1024 tokens, and non-causal
+    flash_err = 0.0
+    for (bh, S, D), causal, blk in (((4, 256, 64), True, 64),
+                                     ((32, 1024, 128), True, 128),
+                                     ((4, 128, 64), False, 64)):
+        q, k, v = (rng.standard_normal((bh, S, D)).astype(np.float32)
+                   for _ in range(3))
+        out, got = on_card(lambda: ops.flash(q, k, v, causal=causal,
+                                             blk_q=blk, blk_k=blk))
+        want = flash_attention_plain(*(torch.from_numpy(x).cuda()
+                                       for x in (q, k, v)), causal, blk, blk)
+        err = float((out - want).abs().max())
+        if not err <= FLASH_ATOL:
+            raise AssertionError(f"ops.flash {(bh, S, D)}: {err}")
+        flash_err = max(flash_err, err)
+        per[f"flash_{bh}x{S}x{D}_{'causal' if causal else 'full'}"] = dict(
+            launches=got, max_abs_err_vs_plain=err)
+    return check_path("kernel-path", per), per, flash_err
 
 
 def golden_shapes():
@@ -584,6 +871,7 @@ def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
     seg_bytes = (2 * regs.numel() * 4 + 2 * shmem.numel() * 4 + 2 * n
                  + rows.numel() * 4 + 2 * n * 4)
     out["segment"] = dict(ms=cuda_time_ms(kern, iters),
+                          device_ms=cuda_device_ms(kern),
                           plain_ms=cuda_time_ms(plain, 3),
                           bytes=seg_bytes, ops=lanes * n,
                           shape=f"QRD-16 wave: {n} SMs x {stop - start} rows,"
@@ -601,6 +889,8 @@ def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
     out["gather_shared"] = dict(
         ms=cuda_time_ms(lambda: simt_gather_shared(gmem, addr_y, mask, old),
                         iters),
+        device_ms=cuda_device_ms(
+            lambda: simt_gather_shared(gmem, addr_y, mask, old)),
         plain_ms=cuda_time_ms(
             lambda: gather_shared_plain(gmem, addr_y, mask, old), iters),
         bytes=n * 512 * (4 + 1 + 4 + 4 + 4), ops=0,
@@ -611,17 +901,25 @@ def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
     out["scatter_shared"] = dict(
         ms=cuda_time_ms(lambda: simt_scatter_shared(gmem, addr_z, vals, mask),
                         iters),
+        device_ms=cuda_device_ms(
+            lambda: simt_scatter_shared(gmem, addr_z, vals, mask)),
         plain_ms=cuda_time_ms(
             lambda: scatter_shared_plain(gmem, addr_z, vals, mask), iters),
         bytes=2 * gdepth * 4 + n * 512 * (4 + 4 + 1), ops=0,
         shape=f"SAXPY-4096 GST: {n} x 512 lanes, {gdepth}-word image")
     out.update(time_step_kernels(rng, dev, iters))
-    for v in out.values():
+    return out
+
+
+def with_bounds(timing: dict[str, dict]) -> dict[str, dict]:
+    """Add each kernel's least possible time: the larger of its bytes at
+    the card's memory rate and its operations at the float32 peak."""
+    for v in timing.values():
         v["bound_ms"] = max(v["bytes"] / PEAK_BYTES_PER_S,
                             v["ops"] / PEAK_FP32_OPS_PER_S) * 1e3
         v["bound_by"] = "bytes" if v["bytes"] / PEAK_BYTES_PER_S \
             >= v["ops"] / PEAK_FP32_OPS_PER_S else "operations"
-    return out
+    return timing
 
 
 def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
@@ -642,6 +940,7 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     # FP32 MUL, the FFT butterfly's and QRD projection's ALU row
     out["alu"] = dict(
         ms=cuda_time_ms(lambda: simt_alu(3, 2, a, b, mask, old), iters),
+        device_ms=cuda_device_ms(lambda: simt_alu(3, 2, a, b, mask, old)),
         plain_ms=cuda_time_ms(lambda: alu_plain(3, 2, a, b, mask, old),
                               iters),
         bytes=lanes * (4 + 4 + 1 + 4 + 4), ops=lanes,
@@ -652,6 +951,7 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     touched = sum(np.unique(row).size for row in addr_np)
     out["gather"] = dict(
         ms=cuda_time_ms(lambda: simt_gather(mem, addr, mask, old), iters),
+        device_ms=cuda_device_ms(lambda: simt_gather(mem, addr, mask, old)),
         plain_ms=cuda_time_ms(lambda: gather_plain(mem, addr, mask, old),
                               iters),
         bytes=lanes * (4 + 1 + 4 + 4) + 4 * touched, ops=0,
@@ -659,11 +959,86 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
               f"{depth}-word image")
     out["scatter"] = dict(
         ms=cuda_time_ms(lambda: simt_scatter(mem, addr, a, mask), iters),
+        device_ms=cuda_device_ms(lambda: simt_scatter(mem, addr, a, mask)),
         plain_ms=cuda_time_ms(lambda: scatter_plain(mem, addr, a, mask),
                               iters),
         bytes=2 * n * depth * 4 + lanes * (4 + 4 + 1), ops=0,
         shape=f"STO: {n} x 512 lanes, random addresses in a "
               f"{depth}-word image")
+    return out
+
+
+def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
+    """dot, FFT, QRD and flash at the kernel path's shapes, each beside
+    its plain version and, where one exists, the one PyTorch call that
+    computes the same function (timed here only; the port never calls
+    it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
+    from repro_torch.kernels.wavefront_dot import (wavefront_dot,
+                                                   wavefront_dot_plain)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    f32 = lambda shape: t(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    out = {}
+    n_sm = 4096
+    a, b = f32((n_sm, 512)), f32((n_sm, 512))
+    mask = torch.ones((n_sm, 512), dtype=torch.bool, device=dev)
+    out["dot"] = dict(
+        ms=cuda_time_ms(lambda: wavefront_dot(a, b, mask, 0), iters),
+        device_ms=cuda_device_ms(lambda: wavefront_dot(a, b, mask, 0)),
+        plain_ms=cuda_time_ms(lambda: wavefront_dot_plain(a, b, mask, 0), 5),
+        library_ms=None, bytes=n_sm * 512 * (4 + 4 + 1) + n_sm * 32 * 4,
+        ops=n_sm * 32 * 31, shape=f"DOT: {n_sm} x 512 lanes, every lane")
+
+    rows, n = 4096, 256
+    log2n = n.bit_length() - 1
+    re, im = f32((rows, n)), f32((rows, n))
+    z = torch.complex(re, im)
+    out["fft"] = dict(
+        ms=cuda_time_ms(lambda: fft_r2(re, im), iters),
+        device_ms=cuda_device_ms(lambda: fft_r2(re, im)),
+        plain_ms=cuda_time_ms(lambda: fft_r2_plain(re, im), 20),
+        library_ms=cuda_time_ms(lambda: torch.fft.fft(z, dim=-1), iters),
+        library_device_ms=cuda_device_ms(lambda: torch.fft.fft(z, dim=-1)),
+        bytes=4 * rows * n * 4 + 2 * log2n * (n // 2) * 4,
+        ops=rows * 5 * n * log2n,
+        shape=f"FFT-{n} x {rows} rows, natural order "
+              f"(library: torch.fft.fft, complex64)")
+
+    batch, n = 4096, 16
+    A = t((rng.standard_normal((batch, n, n))
+           + 4 * np.eye(n)).astype(np.float32))
+    out["qrd"] = dict(
+        ms=cuda_time_ms(lambda: mgs_qrd(A), iters),
+        device_ms=cuda_device_ms(lambda: mgs_qrd(A)),
+        plain_ms=cuda_time_ms(lambda: mgs_qrd_plain(A), 3),
+        library_ms=cuda_time_ms(lambda: torch.linalg.qr(A), 20),
+        library_device_ms=cuda_device_ms(lambda: torch.linalg.qr(A), 20),
+        bytes=3 * batch * n * n * 4,
+        ops=batch * n * (8 * n * n + 8 * n + 1),
+        shape=f"QRD-{n} x {batch} (A += 4 I; library: torch.linalg.qr, "
+              f"the same factorisation up to the signs of R's diagonal)")
+
+    bh, S, D = 32, 1024, 128
+    q, k, v = f32((bh, S, D)), f32((bh, S, D)), f32((bh, S, D))
+    out["flash"] = dict(
+        ms=cuda_time_ms(lambda: flash_attention(q, k, v), iters),
+        device_ms=cuda_device_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=cuda_time_ms(
+            lambda: flash_attention_plain(q, k, v, True, 128, 128), 10),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters),
+        library_device_ms=cuda_device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        bytes=4 * bh * S * D * 4,
+        ops=bh * (S * (S + 1) // 2) * 4 * D,
+        shape=f"flash ({bh}, {S}, {D}) causal float32, blocks 128 x 128 "
+              f"(library: scaled_dot_product_attention, float32)")
     return out
 
 
@@ -676,6 +1051,9 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    # the plain versions' matmuls (flash) are the float32 yardstick
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -690,13 +1068,21 @@ def main() -> int:
     g_err, s_err = phases.run("gmem-vs-plain", lambda: check_gmem(rng, dev))
     errs = phases.run("per-op-vs-plain", lambda: check_per_op(rng, dev))
     errs.update(segment=seg_err, gather_shared=g_err, scatter_shared=s_err)
+    layer_err, flash_bf16_err = phases.run(
+        "hand-kernels-vs-plain", lambda: check_kernel_layer(rng, dev))
+    errs.update(layer_err)
     paths = {}
     paths["main-path"] = phases.run("main-path", lambda: main_path(rng))
     counts, per, keep = phases.run("step-path", lambda: step_path(rng))
     paths["step-path"] = (counts, per)
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
+    counts, per, path_flash_err = phases.run(
+        "kernel-path", lambda: kernel_path(rng))
+    paths["kernel-path"] = (counts, per)
+    errs["flash"] = max(errs["flash"], path_flash_err)
     n_golden = phases.run("golden-cycles", golden_shapes)
-    timing = phases.run("timing", lambda: time_kernels(rng, dev))
+    timing = phases.run("timing", lambda: with_bounds({
+        **time_kernels(rng, dev), **time_kernel_layer(rng, dev)}))
 
     # launches per kernel, summed over the paths (each path's counts were
     # set to 0 just before it and read just after)
@@ -705,14 +1091,20 @@ def main() -> int:
         "paths": {name: {"launches": c, "per_workload": per}
                   for name, (c, per) in paths.items()},
         "golden_entries": n_golden,
+        "flash_bf16_max_abs_err": flash_bf16_err,
         "timing_shapes": {k: v["shape"] for k, v in timing.items()},
+        "device_ms": {k: v["device_ms"] for k, v in timing.items()},
+        "library_device_ms": {k: v["library_device_ms"]
+                              for k, v in timing.items()
+                              if "library_device_ms" in v},
         "phase_ms": phases.ms, "card": card}))
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": errs[k], "ms": timing[k]["ms"],
         "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
-        "bound_by": timing[k]["bound_by"], "library_ms": None,
+        "bound_by": timing[k]["bound_by"],
+        "library_ms": timing[k].get("library_ms"),
     } for k in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(card)

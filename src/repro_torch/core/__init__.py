@@ -15,6 +15,7 @@ Public API:
     MegakernelPlan, compile_megakernel   — the megakernel engine
     ExecBackend, execute_backends        — "cuda" (kernels on the card) and
                                            "cpu" (plain versions on the host)
+    resources                            — Tables I/V + §III.E analytic model
 """
 from .assembler import AsmError, Program, assemble, auto_nop, check_hazards
 from .cycles import ProgramTrace, instr_cycles, program_trace
@@ -38,6 +39,7 @@ from .executor import (
 from .isa import CLASS_NAMES, Cond, Depth, Instr, Op, Typ, Width
 from .machine import MachineState, SMConfig, init_state, profile
 from .packing import PACKINGS, WavePacking, pack_waves
+from . import resources
 from .scheduler import Schedule, schedule_blocks
 from .trace_engine import (
     ENGINES,
@@ -60,4 +62,5 @@ __all__ = [
     "Schedule", "schedule_blocks",
     "ENGINES", "MegakernelPlan", "TraceSchedule", "compile_megakernel",
     "compile_program",
+    "resources",
 ]

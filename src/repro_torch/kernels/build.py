@@ -21,12 +21,16 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 HEADERS = ("egpu_fp32.cuh",)
+# a block may use at most 227 KiB of shared memory on Hopper
+MAX_DYNAMIC_SMEM = 232_448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (library, argument types); every entry point returns
@@ -39,12 +43,18 @@ _ENTRY_POINTS = {
     "egpu_alu": ("alu", (_I, _I, _P, _P, _P, _P, _P, _I, _P)),
     "egpu_gather": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),
     "egpu_scatter": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),
+    "egpu_wavefront_dot": ("dot", (_I, _P, _P, _P, _P, _I, _P)),
+    "egpu_fft_r2": ("fft", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "egpu_mgs_qrd": ("qrd", (_P, _P, _P, _I, _I, _P)),
+    "egpu_flash_attention": ("flash", (_I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _P)),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
 launches = {"segment": 0, "gather_shared": 0, "scatter_shared": 0,
-            "alu": 0, "gather": 0, "scatter": 0}
+            "alu": 0, "gather": 0, "scatter": 0,
+            "dot": 0, "fft": 0, "qrd": 0, "flash": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -122,3 +132,23 @@ def check(err: int, what: str) -> None:
     """Raise if a launch was refused (``cudaGetLastError`` after it)."""
     if err:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, as a kernel takes its arguments."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def current_stream() -> int:
+    """The handle of PyTorch's current stream, on which every kernel
+    launches."""
+    return torch.cuda.current_stream().cuda_stream

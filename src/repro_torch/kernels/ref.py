@@ -22,7 +22,13 @@ x86 unit would flush it; no other value differs.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+# the causal mask's "minus infinity": finite, so exp(NEG_INF - m) is an
+# exact 0 and a fully masked row never computes inf - inf
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # opcode numbering shared with the kernels (subset of core.isa.Op that the
 # SIMT ALU executes)
@@ -197,3 +203,114 @@ def wavefront_reduce(terms: torch.Tensor, enabled: torch.Tensor,
     for lane in range(v.shape[-1]):
         acc = fp_add(acc, v[..., lane])
     return acc
+
+
+# ---------------------------------------------------------------------------
+# the kernel layer: wavefront dot, FFT, QRD, attention
+# ---------------------------------------------------------------------------
+
+def wavefront_dot_ref(a: torch.Tensor, b: torch.Tensor, active: torch.Tensor,
+                      mode: int = 0, n_sp: int = 16) -> torch.Tensor:
+    """Per-wavefront reduction: ``(..., n_threads)`` float32 -> ``(...,
+    n_threads // n_sp)`` float32.
+
+    Mode 0 (DOT) sums ``a*b``, any other mode (SUM) ``a+b``, over the lanes
+    where ``active`` (bool) holds; inactive lanes contribute +0.0, so a NaN
+    there does not leak. Each term and each add rounds once in the
+    reference's execution mode (denormals as zeros, the x86 NaN rule), and
+    the lanes are summed one by one from +0.0, lane 0 first."""
+    *lead, n = a.shape
+    waves = n // n_sp
+    words = lambda x: x.to(torch.float32).contiguous().view(torch.int32)  # noqa: E731
+    terms = fp_binop(ALU_MUL if mode == 0 else ALU_ADD, words(a), words(b))
+    out = wavefront_reduce(terms.reshape(*lead, waves, n_sp),
+                           active.reshape(*lead, waves, n_sp), pairwise=False)
+    return out.view(torch.float32)
+
+
+def bitrev(n: int) -> torch.Tensor:
+    """The bit-reversal permutation of ``range(n)``, n a power of two
+    (int64)."""
+    bits = n.bit_length() - 1
+    idx = torch.arange(n)
+    out = torch.zeros(n, dtype=torch.int64)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def fft_r2_ref(re: torch.Tensor, im: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched DFT, natural-order output, by ``torch.fft`` in complex64:
+    the numeric oracle of the radix-2 kernel (tests only)."""
+    y = torch.fft.fft(torch.complex(re.to(torch.float32),
+                                    im.to(torch.float32)), dim=-1)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def fft_r2_ref_br(re: torch.Tensor, im: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same, in the radix-2 kernel's bit-reversed output order."""
+    idx = bitrev(re.shape[-1]).to(re.device)
+    rr, ri = fft_r2_ref(re, im)
+    return rr[..., idx], ri[..., idx]
+
+
+def mgs_qrd_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched modified Gram-Schmidt QR: ``(B, n, n)`` float32 -> ``(Q,
+    R)``, column by column, with one re-orthogonalisation pass.
+
+    For column j: take it by index; project it once more on the Q columns
+    found so far (``coeff``) and fold ``coeff`` into column j of R before
+    the norm; normalise with INVSQR (correctly rounded, see ``invsqr``);
+    then ``rrow = q_j^T res`` is row j of R and ``res -= q_j rrow``.
+    Finished columns carry zero residuals, so every step is branch-free.
+
+    Every inner product sums its products one by one from +0.0, index 0
+    first, and every multiply and add rounds once: the QRD kernel keeps
+    the same order, so the two are equal word for word."""
+    a = a.to(torch.float32)
+    B, n, _ = a.shape
+    res = a.clone()
+    q = torch.zeros_like(a)
+    r = torch.zeros_like(a)
+    zeros = a.new_zeros((B, n))
+    for j in range(n):
+        aj = res[:, :, j].clone()
+        coeff = zeros                                   # coeff[k] = <q_k, aj>
+        for i in range(n):
+            coeff = coeff + q[:, i, :] * aj[:, i, None]
+        corr = zeros                                    # corr = Q coeff
+        for k in range(n):
+            corr = corr + q[:, :, k] * coeff[:, k, None]
+        aj = aj - corr
+        res[:, :, j] = res[:, :, j] - corr
+        r[:, :, j] = r[:, :, j] + coeff
+        nrm2 = zeros[:, 0]
+        for i in range(n):
+            nrm2 = nrm2 + aj[:, i] * aj[:, i]
+        recip = invsqr(nrm2.contiguous().view(torch.int32)).view(torch.float32)
+        qj = aj * recip[:, None]
+        rrow = zeros                                    # rrow[k] = <q_j, res_k>
+        for i in range(n):
+            rrow = rrow + qj[:, i, None] * res[:, i, :]
+        res = res - qj[:, :, None] * rrow[:, None, :]
+        q[:, :, j] = q[:, :, j] + qj
+        r[:, j, :] = r[:, j, :] + rrow
+    return q, r
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention on ``(BH, S, D)`` in float32, returned in
+    q's dtype: the oracle of the flash kernel."""
+    D = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(D)
+    if causal:
+        S = q.shape[1]
+        i = torch.arange(S, device=q.device)
+        s = torch.where(i[None, :] <= i[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w,
+                        v.to(torch.float32)).to(q.dtype)

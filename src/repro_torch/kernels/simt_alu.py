@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .simt_step import _check, _stream
+from .build import check_tensor, current_stream
 
 
 def alu_plain(op: int, typ: int, a, b, mask, old):
@@ -30,7 +30,7 @@ def check_alu_args(op: int, typ: int, a, b, mask, old) -> None:
     dev = a.device
     for t, name, dt in ((a, "a", torch.int32), (b, "b", torch.int32),
                         (mask, "mask", torch.bool), (old, "old", torch.int32)):
-        _check(t, name, dt, old.shape, dev)
+        check_tensor(t, name, dt, old.shape, dev)
 
 
 def simt_alu(op: int, typ: int, a, b, mask, old):
@@ -44,6 +44,6 @@ def simt_alu(op: int, typ: int, a, b, mask, old):
     fn = build.entry_point("egpu_alu")
     build.check(fn(int(op), int(typ), a.data_ptr(), b.data_ptr(),
                    mask.data_ptr(), old.data_ptr(), out.data_ptr(),
-                   old.numel(), _stream()), "alu")
+                   old.numel(), current_stream()), "alu")
     build.launches["alu"] += 1
     return out

@@ -24,27 +24,9 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ..core.machine import MAX_THREADS, N_REGS
+from .build import MAX_DYNAMIC_SMEM, check_tensor, current_stream
 
-# a block may use at most 227 KiB of shared memory on Hopper
-MAX_DYNAMIC_SMEM = 232_448
 N_FIELDS = 15
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
-                         f"{tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, want {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +36,10 @@ def _stream() -> int:
 def segment_smem_bytes(depth: int) -> int:
     """Dynamic shared memory of one segment CTA: the register file, the
     shared-memory image and the store-port winner array."""
+    # the core's executor imports this module: take its machine constants
+    # at call time, so that either may be imported first
+    from ..core.machine import MAX_THREADS, N_REGS
+
     return 4 * (MAX_THREADS * N_REGS + 2 * depth)
 
 
@@ -68,14 +54,16 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
 
         return apply_segment_rows(cfg, rows, block_idx, prog_idx, regs,
                                   shmem, oob, shmem_depth=shmem_depth)
+    from ..core.machine import MAX_THREADS, N_REGS
+
     n, depth = shmem.shape
     dev = regs.device
-    _check(rows, "rows", torch.int32, (rows.shape[0], N_FIELDS), dev)
-    _check(block_idx, "block_idx", torch.int32, (n,), dev)
-    _check(prog_idx, "prog_idx", torch.int32, (n,), dev)
-    _check(regs, "regs", torch.int32, (n, MAX_THREADS, N_REGS), dev)
-    _check(shmem, "shmem", torch.int32, (n, depth), dev)
-    _check(oob, "oob", torch.bool, (n,), dev)
+    check_tensor(rows, "rows", torch.int32, (rows.shape[0], N_FIELDS), dev)
+    check_tensor(block_idx, "block_idx", torch.int32, (n,), dev)
+    check_tensor(prog_idx, "prog_idx", torch.int32, (n,), dev)
+    check_tensor(regs, "regs", torch.int32, (n, MAX_THREADS, N_REGS), dev)
+    check_tensor(shmem, "shmem", torch.int32, (n, depth), dev)
+    check_tensor(oob, "oob", torch.bool, (n,), dev)
     bound = depth if shmem_depth is None else int(shmem_depth)
     if not 1 <= bound <= depth:
         raise ValueError(f"shmem_depth={bound} outside [1, {depth}]")
@@ -91,7 +79,7 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
                        prog_idx.data_ptr(), regs.data_ptr(),
                        shmem.data_ptr(), oob.data_ptr(), regs_o.data_ptr(),
                        shmem_o.data_ptr(), oob_o.data_ptr(), n, depth, bound,
-                       cfg.n_threads, cfg.dim_x, _stream()), "segment")
+                       cfg.n_threads, cfg.dim_x, current_stream()), "segment")
         build.launches["segment"] += 1
         return regs_o, shmem_o, oob_o
     return regs.clone(), shmem.clone(), oob.clone()
@@ -124,21 +112,21 @@ def check_gather_args(mem, addr, mask, old) -> None:
     """Raise unless the LOD kernel takes these tensors as they are."""
     n, depth = mem.shape
     dev = mem.device
-    _check(mem, "mem", torch.int32, (n, depth), dev)
+    check_tensor(mem, "mem", torch.int32, (n, depth), dev)
     for t, name, dt in ((addr, "addr", torch.int32),
                         (mask, "mask", torch.bool), (old, "old", torch.int32)):
-        _check(t, name, dt, (n, old.shape[1]), dev)
+        check_tensor(t, name, dt, (n, old.shape[1]), dev)
 
 
 def check_scatter_args(mem, addr, vals, do) -> None:
     """Raise unless the STO kernel takes these tensors as they are."""
     n, depth = mem.shape
     dev = mem.device
-    _check(mem, "mem", torch.int32, (n, depth), dev)
+    check_tensor(mem, "mem", torch.int32, (n, depth), dev)
     k = vals.shape[1]
     for t, name, dt in ((addr, "addr", torch.int32),
                         (vals, "vals", torch.int32), (do, "do", torch.bool)):
-        _check(t, name, dt, (n, k), dev)
+        check_tensor(t, name, dt, (n, k), dev)
     if not 1 <= k <= 1024:
         raise ValueError(f"{k} lanes per SM do not fit one CTA")
     if scatter_smem_bytes(depth) > MAX_DYNAMIC_SMEM:
@@ -159,7 +147,7 @@ def simt_gather(mem, addr, mask, old):
     fn = build.entry_point("egpu_gather")
     build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), mask.data_ptr(),
                    old.data_ptr(), out.data_ptr(), old.shape[1], old.numel(),
-                   _stream()), "gather")
+                   current_stream()), "gather")
     build.launches["gather"] += 1
     return out
 
@@ -176,7 +164,8 @@ def simt_scatter(mem, addr, vals, do):
     out = torch.empty_like(mem)
     fn = build.entry_point("egpu_scatter")
     build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), vals.data_ptr(),
-                   do.data_ptr(), out.data_ptr(), n, k, _stream()), "scatter")
+                   do.data_ptr(), out.data_ptr(), n, k,
+                   current_stream()), "scatter")
     build.launches["scatter"] += 1
     return out
 
@@ -203,19 +192,19 @@ def scatter_shared_plain(gmem, addr, vals, do):
 def check_gather_shared_args(gmem, addr, mask, old) -> None:
     """Raise unless the GLD kernel takes these tensors as they are."""
     dev = gmem.device
-    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
+    check_tensor(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
     for t, name, dt in ((addr, "addr", torch.int32),
                         (mask, "mask", torch.bool), (old, "old", torch.int32)):
-        _check(t, name, dt, old.shape, dev)
+        check_tensor(t, name, dt, old.shape, dev)
 
 
 def check_scatter_shared_args(gmem, addr, vals, do) -> None:
     """Raise unless the GST kernel takes these tensors as they are."""
     dev = gmem.device
-    _check(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
+    check_tensor(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
     for t, name, dt in ((addr, "addr", torch.int32),
                         (vals, "vals", torch.int32), (do, "do", torch.bool)):
-        _check(t, name, dt, vals.shape, dev)
+        check_tensor(t, name, dt, vals.shape, dev)
 
 
 def simt_gather_shared(gmem, addr, mask, old):
@@ -229,7 +218,7 @@ def simt_gather_shared(gmem, addr, mask, old):
     fn = build.entry_point("egpu_gather_shared")
     build.check(fn(gmem.data_ptr(), gmem.shape[0], addr.data_ptr(),
                    mask.data_ptr(), old.data_ptr(), out.data_ptr(),
-                   old.numel(), _stream()), "gather_shared")
+                   old.numel(), current_stream()), "gather_shared")
     build.launches["gather_shared"] += 1
     return out
 
@@ -246,6 +235,6 @@ def simt_scatter_shared(gmem, addr, vals, do):
     fn = build.entry_point("egpu_scatter_shared")
     build.check(fn(out.data_ptr(), gmem.shape[0], addr.data_ptr(),
                    vals.data_ptr(), do.data_ptr(), winner.data_ptr(),
-                   vals.numel(), _stream()), "scatter_shared")
+                   vals.numel(), current_stream()), "scatter_shared")
     build.launches["scatter_shared"] += 1
     return out

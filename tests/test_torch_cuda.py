@@ -11,8 +11,14 @@ import torch
 
 from repro_torch.core import SMConfig
 from repro_torch.core.executor import apply_segment_rows
-from repro_torch.kernels import fuzz
+from repro_torch.kernels import build, fuzz, ops
+from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
 from repro_torch.kernels.simt_alu import alu_plain, simt_alu
+from repro_torch.kernels.wavefront_dot import (wavefront_dot,
+                                               wavefront_dot_plain)
 from repro_torch.kernels.simt_step import (
     gather_plain, gather_shared_plain, scatter_plain, scatter_shared_plain,
     simt_gather, simt_gather_shared, simt_scatter, simt_scatter_shared,
@@ -97,3 +103,83 @@ def test_smem_kernels_match_plain_versions(dev, depth, span):
     wild = torch.where(mask, addr, torch.full_like(addr, -(1 << 30)))
     assert torch.equal(simt_scatter(mem, wild, vals, mask),
                        scatter_plain(mem, wild, vals, mask))
+
+
+# ---------------------------------------------------------------------------
+# the kernel layer: wavefront_dot, fft_r2, mgs_qrd, flash_attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dot_kernel_matches_plain_version(dev, mode):
+    rng = np.random.default_rng(40 + mode)
+    a, b = (_words(fuzz.random_f32_words(rng, (24, 512)), dev)
+            .view(torch.float32) for _ in range(2))
+    mask = torch.from_numpy(rng.random((24, 512)) < 0.6).to(dev)
+    got = wavefront_dot(a, b, mask, mode)
+    want = wavefront_dot_plain(a, b, mask, mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 64, 4096])
+@pytest.mark.parametrize("natural", [True, False])
+def test_fft_kernel_matches_plain_version(dev, n, natural):
+    rng = np.random.default_rng(n)
+    re, im = (torch.from_numpy(rng.standard_normal((16, n)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    for g, w in zip(fft_r2(re, im, natural=natural),
+                    fft_r2_plain(re, im, natural)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 32])
+def test_qrd_kernel_matches_plain_version(dev, n):
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((64, n, n)).astype(
+        np.float32)).to(dev)
+    for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape,blk_q,blk_k", [((3, 256, 64), 64, 32),
+                                               ((2, 96, 33), 16, 48)])
+def test_flash_kernel_matches_plain_version(dev, dtype, causal, shape,
+                                            blk_q, blk_k):
+    # fp32: the kernel and the plain version sum the products in another
+    # order (atol 2e-5, the reference's own bar); bf16: one bf16 ulp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(int(causal))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    got = flash_attention(q, k, v, causal=causal, blk_q=blk_q, blk_k=blk_k)
+    want = flash_attention_plain(q, k, v, causal, blk_q, blk_k)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_each_ops_call_launches_its_kernel_once(dev):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 512)).astype(np.float32)
+    a = rng.standard_normal((4, 16, 16)).astype(np.float32)
+    s = rng.standard_normal((2, 128, 64)).astype(np.float32)
+    calls = {"dot": lambda: ops.dot(x, x),
+             "fft": lambda: ops.fft(x, x),
+             "qrd": lambda: ops.qrd(a),
+             "flash": lambda: ops.flash(s, s, s, blk_q=64, blk_k=64)}
+    for name, call in calls.items():
+        before = dict(build.launches)
+        call()
+        torch.cuda.synchronize()
+        assert build.launches[name] == before[name] + 1, name
+        assert all(build.launches[k] == before[k]
+                   for k in before if k != name), name

@@ -1,4 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package."""
+import os
 import re
 import subprocess
 import sys
@@ -41,3 +42,17 @@ def test_no_port_source_names_the_reference_package():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pat.search(line) and "src/repro/" not in line]
     assert not hits, "\n".join(hits)
+
+
+def test_kernel_layer_imports_first():
+    # the kernel package and the core import each other's modules; either
+    # may be imported first
+    for first in ("repro_torch.kernels", "repro_torch.kernels.ops",
+                  "repro_torch.kernels.simt_alu",
+                  "repro_torch.kernels.simt_step"):
+        out = subprocess.run(
+            [sys.executable, "-c", f"import {first}; import repro_torch.core;"
+             " print('ok')"],
+            capture_output=True, text=True, timeout=120, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        assert out.returncode == 0, (first, out.stderr)
