@@ -13,10 +13,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
   2. holds each kernel against its plain PyTorch version on the card with
      ``==`` over seeded random inputs (address collisions, masked and
      out-of-range lanes, snooped operands, guarded rows, NaN/infinite/
-     denormal FP32 words, INVSQR, every ALU op and type, shared-memory
-     depths 64, 1024 and 3072; the kernel layer's dot over fuzzed words,
-     FFT at N = 2...4096, QRD at n = 5...32), and the flash kernel
-     within 2e-5 in float32 and one bf16 ulp in bfloat16;
+     denormal FP32 words, FP32 MUL and DOT products around 2**-126,
+     INVSQR, every ALU op and type, shared-memory depths 64, 1024 and
+     3072; the kernel layer's dot over fuzzed words, FFT at N =
+     2...16384 in both orders, QRD at n = 5...32 with non-finite input),
+     and the flash kernel within 2e-5 in float32 and one bf16 ulp in
+     bfloat16 at D = 1...128 with blocks of 16...256;
   3. drives three paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
      width, through the program entry points, each with the launch counts
      set to 0 just before it and read just after:
@@ -47,7 +49,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      PyTorch call computes the same function, that call (timed only);
      the kernel and that call are timed once more on the card alone
      (``device_ms``: queued behind a sleep kernel, so the host's cost
-     per launch is hidden);
+     per launch is hidden); two more rows time ``fft`` at FFT-4096 x 1024
+     (a CTA per row) and ``flash`` in bfloat16;
   6. prints the ``kernels`` JSON line, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -70,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 REPLACES = {
     "segment": "src/repro/kernels/simt_step.py:146",
@@ -225,9 +229,22 @@ def check_segment(rng, dev) -> int:
     cases = [(SMConfig(), 4, 3072, None, 600),
              (SMConfig(n_threads=256, dim_x=16), 3, 1024, 1000, 400),
              (SMConfig(n_threads=96, dim_x=8), 2, 64, None, 400)]
+    # FP32 MUL and DOT over products around 2**-126 (tininess after
+    # rounding: lanes 0-3 of R3 hold 0x3F7FFFFF x 0x00800000 with each sign)
+    tiny = np.array([[1, 3, 2, 3, 1, 2, 0, 0, 0, 0, 0, 0, 0, 32, 16],
+                     [6, 15, 2, 4, 1, 2, 0, 0, 0, 0, 0, 0, 0, 32, 16],
+                     [6, 15, 2, 5, 1, 2, 0, 0, 0, 0, 1, 6, 0, 32, 16]],
+                    np.int32)
+    cases.append((SMConfig(), 3, 64, None, tiny))
     for cfg, n, depth, bound, n_rows in cases:
-        rows = fuzz.random_rows(rng, n_rows, n_threads=cfg.n_threads)
-        regs, shmem = fuzz.random_state(rng, n, depth)
+        if isinstance(n_rows, int):
+            rows = fuzz.random_rows(rng, n_rows, n_threads=cfg.n_threads)
+            regs, shmem = fuzz.random_state(rng, n, depth)
+        else:
+            rows = n_rows
+            regs, shmem = fuzz.random_state(rng, n, depth)
+            regs[:, :, 1], regs[:, :, 2] = fuzz.tiny_product_words(
+                rng, (n, 512))
         args = [torch.from_numpy(a.view(np.int32)).to(dev)
                 for a in (regs, shmem)]
         oob = torch.from_numpy(rng.random(n) < 0.2).to(dev)
@@ -239,6 +256,10 @@ def check_segment(rng, dev) -> int:
                                   oob, shmem_depth=bound)
         for name, g, w in zip(("regs", "shmem", "oob"), got, want):
             worst = max(worst, words_equal(f"segment {name}", g, w))
+    # the tininess case itself: the exact products are 2**-126 - 2**-150
+    if got[0][0, :4, 3].tolist() != [0, -2**31, -2**31, 0]:
+        raise AssertionError(f"segment MUL.FP32 0x3F7FFFFF x 0x00800000: "
+                             f"{got[0][0, :4, 3].tolist()}")
     return worst
 
 
@@ -290,6 +311,16 @@ def check_per_op(rng, dev) -> dict[str, int]:
                     f"alu op={op} typ={typ}",
                     simt_alu(op, typ, a, b, mask, old),
                     alu_plain(op, typ, a, b, mask, old)))
+    # FP32 MUL around 2**-126 (x86 detects tininess after rounding)
+    a, b = (t(x.view(np.int32)) for x in fuzz.tiny_product_words(rng, (4, 512)))
+    mask = torch.ones((4, 512), dtype=torch.bool, device=dev)
+    old = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    got = simt_alu(3, 2, a, b, mask, old)
+    worst["alu"] = max(worst["alu"], words_equal(
+        "alu MUL.FP32 near 2**-126", got, alu_plain(3, 2, a, b, mask, old)))
+    if got[0, :4].tolist() != [0, -2**31, -2**31, 0]:
+        raise AssertionError(f"alu MUL.FP32 0x3F7FFFFF x 0x00800000: "
+                             f"{got[0, :4].tolist()}")
     for depth in (64, 1024, 3072):
         for span in (depth, 37, 2):
             mem = t(rng.integers(-2**31, 2**31, (4, depth)).astype(np.int32))
@@ -308,14 +339,18 @@ def check_per_op(rng, dev) -> dict[str, int]:
     return worst
 
 
-def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float]:
+def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
     """The kernel layer's kernels against their plain versions: dot over
-    fuzzed words with random masks in both modes, FFT at every N = 2...4096
-    in both output orders, QRD at n = 5, 8, 16, 31, 32 (all ``==``), and
-    flash causal and not, float32 and bfloat16, with odd widths and
-    blocks narrower than a CTA's rows (within FLASH_ATOL and one bf16
-    ulp). Returns the largest error of each (float32 for flash) and the
-    largest bfloat16 flash error."""
+    fuzzed words with random masks in both modes, FFT at every N =
+    2...16384 in both output orders over row counts that fill no whole
+    CTA, QRD at n = 5, 8, 16, 31, 32 and on non-finite input (all ``==``,
+    NaNs as one word), and flash causal and not, float32 and bfloat16, at
+    D = 1, 33, 64, 96, 128 with blocks from 8 to 256 and S not a multiple
+    of the kernel's 64-row tiles, on finite input and with NaNs and
+    infinities in k and v (the same non-finite places, the rest within
+    FLASH_ATOL and one bf16 ulp), and bfloat16 flash at (32, 1024, 128)
+    causal. Returns the largest error of each (float32 for flash), the
+    largest bfloat16 flash error and that at (32, 1024, 128)."""
     import torch
     from repro_torch.kernels import fuzz
     from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
@@ -337,45 +372,92 @@ def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float]:
                 f"dot n_sm={n_sm} mode={mode}",
                 words(wavefront_dot(a, b, mask, mode)),
                 words(wavefront_dot_plain(a, b, mask, mode))))
-    for log2n in range(1, 13):
+    # a warp per tile of max(1, 256 / N) rows and eight tiles per CTA up
+    # to N = 1024, a CTA per row above: 37 and 5 rows fill no whole CTA
+    for log2n in range(1, 15):
         n = 1 << log2n
-        re, im = (t(rng.standard_normal((8, n)).astype(np.float32))
+        rows = 37 if n <= 4096 else 5
+        re, im = (t(rng.standard_normal((rows, n)).astype(np.float32))
                   for _ in range(2))
         for natural in (True, False):
-            for g, w in zip(fft_r2(re, im, natural=natural),
+            for g, w in zip(fft_r2(re, im, block_b=1, natural=natural),
                             fft_r2_plain(re, im, natural)):
                 worst["fft"] = max(worst["fft"], words_equal(
                     f"fft N={n} natural={natural}", words(g), words(w)))
+    # NaNs compare as one word: where the kernel and the plain version
+    # both compute one, its payload is the arithmetic's
+    one_nan = lambda x: torch.where(torch.isnan(x), float("nan"), x)  # noqa: E731
     for n in (5, 8, 16, 31, 32):
-        a = t(rng.standard_normal((64, n, n)).astype(np.float32))
+        a = rng.standard_normal((64, n, n)).astype(np.float32)
+        # matrices 1-4: an infinity, a NaN, a zero column (norm 0, so
+        # q_j = 0 * inf) and a -inf: the reference's NaN masks
+        a[1, 0, 0], a[2, n - 1, n // 2], a[4, 1, n - 1] = np.inf, np.nan, -np.inf
+        a[3, :, n // 2] = 0.0
+        a = t(a)
         for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
             worst["qrd"] = max(worst["qrd"], words_equal(
-                f"qrd n={n}", words(g), words(w)))
+                f"qrd n={n}", words(one_nan(g)), words(one_nan(w))))
+    def flash_close(what, got, want, dtype):
+        """NaN, +inf and -inf at the same places, the finite rest within
+        FLASH_ATOL (float32) or one bf16 ulp; returns the largest error."""
+        got, want = got.float(), want.float()
+        for where in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(where(got), where(want)):
+                raise AssertionError(f"{what}: {where.__name__} differs")
+        fin = torch.isfinite(want)
+        got, want = got[fin], want[fin]
+        err = float((got - want).abs().max()) if fin.any() else 0.0
+        if dtype == torch.float32:
+            if not err <= FLASH_ATOL:
+                raise AssertionError(f"{what}: {err} > {FLASH_ATOL}")
+        else:
+            torch.testing.assert_close(got, want, rtol=BF16_RTOL,
+                                       atol=BF16_ATOL, msg=what)
+        return err
+
     bf16 = 0.0
     for bh, S, D, blk_q, blk_k in ((3, 256, 64, 64, 32),
                                    (2, 512, 128, 128, 128),
                                    (4, 128, 64, 32, 64),
-                                   (2, 96, 33, 16, 48)):
-        qkv = [t(rng.standard_normal((bh, S, D)).astype(np.float32))
+                                   (2, 96, 33, 16, 48),
+                                   (2, 256, 1, 16, 256),
+                                   (2, 320, 96, 64, 16),
+                                   (1, 512, 128, 256, 256),
+                                   (2, 80, 128, 16, 16),
+                                   (2, 192, 64, 8, 24)):
+        qkv = [rng.standard_normal((bh, S, D)).astype(np.float32)
                for _ in range(3)]
-        for causal in (True, False):
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (x.to(dtype) for x in qkv)
-                got = flash_attention(q, k, v, causal=causal, blk_q=blk_q,
-                                      blk_k=blk_k).float()
-                want = flash_attention_plain(q, k, v, causal, blk_q,
-                                             blk_k).float()
-                err = float((got - want).abs().max())
-                what = f"flash {(bh, S, D)} causal={causal} {dtype}"
-                if dtype == torch.float32:
-                    if not err <= FLASH_ATOL:
-                        raise AssertionError(f"{what}: {err} > {FLASH_ATOL}")
-                    worst["flash"] = max(worst["flash"], err)
-                else:
-                    torch.testing.assert_close(got, want, rtol=BF16_RTOL,
-                                               atol=BF16_ATOL, msg=what)
-                    bf16 = max(bf16, err)
-    return worst, bf16
+        # and with a NaN or an infinity in v at keys in some rows' future
+        # (p = 0 times it where the row's live key blocks hold it, not read
+        # past them) and in k (spoils the rows that see its key unmasked)
+        for bad in (None, np.nan, np.inf, -np.inf):
+            q, k, v = (x.copy() for x in qkv)
+            if bad is not None:
+                v[0, S // 2 + 3, 0], v[-1, 5, D - 1] = bad, bad
+                v[-1, S - 1, D // 2], k[0, S // 3, 0] = bad, bad
+            q, k, v = (t(x) for x in (q, k, v))
+            for causal in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+                    err = flash_close(
+                        f"flash {(bh, S, D)} blocks {blk_q} x {blk_k} "
+                        f"causal={causal} {dtype} bad={bad}",
+                        flash_attention(qc, kc, vc, causal=causal,
+                                        blk_q=blk_q, blk_k=blk_k),
+                        flash_attention_plain(qc, kc, vc, causal, blk_q,
+                                              blk_k), dtype)
+                    if dtype == torch.float32:
+                        worst["flash"] = max(worst["flash"], err)
+                    else:
+                        bf16 = max(bf16, err)
+    # bfloat16 at the timing row's shape, (32, 1024, 128) causal
+    q, k, v = (t(rng.standard_normal((32, 1024, 128)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    bf16_timed = flash_close(
+        "flash (32, 1024, 128) causal bfloat16",
+        flash_attention(q, k, v), flash_attention_plain(q, k, v, True, 128,
+                                                        128), torch.bfloat16)
+    return worst, max(bf16, bf16_timed), bf16_timed
 
 
 # ---------------------------------------------------------------------------
@@ -915,10 +997,11 @@ def with_bounds(timing: dict[str, dict]) -> dict[str, dict]:
     """Add each kernel's least possible time: the larger of its bytes at
     the card's memory rate and its operations at the float32 peak."""
     for v in timing.values():
+        peak = v.get("peak_ops", PEAK_FP32_OPS_PER_S)
         v["bound_ms"] = max(v["bytes"] / PEAK_BYTES_PER_S,
-                            v["ops"] / PEAK_FP32_OPS_PER_S) * 1e3
+                            v["ops"] / peak) * 1e3
         v["bound_by"] = "bytes" if v["bytes"] / PEAK_BYTES_PER_S \
-            >= v["ops"] / PEAK_FP32_OPS_PER_S else "operations"
+            >= v["ops"] / peak else "operations"
     return timing
 
 
@@ -1009,6 +1092,21 @@ def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
         ops=rows * 5 * n * log2n,
         shape=f"FFT-{n} x {rows} rows, natural order "
               f"(library: torch.fft.fft, complex64)")
+    # the CTA-per-row design: FFT-4096 x 1024
+    rows, n = 1024, 4096
+    log2n = n.bit_length() - 1
+    re4, im4 = f32((rows, n)), f32((rows, n))
+    z4 = torch.complex(re4, im4)
+    out["fft4096"] = dict(
+        ms=cuda_time_ms(lambda: fft_r2(re4, im4), iters),
+        device_ms=cuda_device_ms(lambda: fft_r2(re4, im4)),
+        plain_ms=cuda_time_ms(lambda: fft_r2_plain(re4, im4), 10),
+        library_ms=cuda_time_ms(lambda: torch.fft.fft(z4, dim=-1), iters),
+        library_device_ms=cuda_device_ms(lambda: torch.fft.fft(z4, dim=-1)),
+        bytes=4 * rows * n * 4 + 2 * log2n * (n // 2) * 4,
+        ops=rows * 5 * n * log2n,
+        shape=f"FFT-{n} x {rows} rows, natural order, a CTA per row "
+              f"(library: torch.fft.fft, complex64)")
 
     batch, n = 4096, 16
     A = t((rng.standard_normal((batch, n, n))
@@ -1024,21 +1122,35 @@ def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
         shape=f"QRD-{n} x {batch} (A += 4 I; library: torch.linalg.qr, "
               f"the same factorisation up to the signs of R's diagonal)")
 
+    # the library call sees the heads as (1, BH, S, D): with (BH, S, D)
+    # SDPA takes its math backend (three kernels, float32 scores in device
+    # memory); with four dimensions its fused kernels (memory-efficient
+    # attention in float32, cuDNN or flash attention in bfloat16). The
+    # three-dimensional call is timed too (``library_3d_device_ms``).
     bh, S, D = 32, 1024, 128
-    q, k, v = f32((bh, S, D)), f32((bh, S, D)), f32((bh, S, D))
-    out["flash"] = dict(
-        ms=cuda_time_ms(lambda: flash_attention(q, k, v), iters),
-        device_ms=cuda_device_ms(lambda: flash_attention(q, k, v)),
-        plain_ms=cuda_time_ms(
-            lambda: flash_attention_plain(q, k, v, True, 128, 128), 10),
-        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters),
-        library_device_ms=cuda_device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
-        bytes=4 * bh * S * D * 4,
-        ops=bh * (S * (S + 1) // 2) * 4 * D,
-        shape=f"flash ({bh}, {S}, {D}) causal float32, blocks 128 x 128 "
-              f"(library: scaled_dot_product_attention, float32)")
+    for name, dtype in (("flash", torch.float32),
+                        ("flash_bf16", torch.bfloat16)):
+        q, k, v = (f32((bh, S, D)).to(dtype) for _ in range(3))
+        q4, k4, v4 = (x[None] for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True)
+        sdpa3 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
+        kern = lambda: flash_attention(q, k, v)  # noqa: E731
+        size = 4 if dtype == torch.float32 else 2
+        out[name] = dict(
+            ms=cuda_time_ms(kern, iters), device_ms=cuda_device_ms(kern),
+            plain_ms=cuda_time_ms(
+                lambda: flash_attention_plain(q, k, v, True, 128, 128), 10),
+            library_ms=cuda_time_ms(sdpa, iters),
+            library_device_ms=cuda_device_ms(sdpa),
+            library_3d_device_ms=cuda_device_ms(sdpa3, 10),
+            bytes=4 * bh * S * D * size,
+            ops=bh * (S * (S + 1) // 2) * 4 * D,
+            peak_ops=PEAK_FP32_OPS_PER_S if size == 4 else PEAK_BF16_OPS_PER_S,
+            shape=f"flash ({bh}, {S}, {D}) causal {str(dtype)[6:]}, blocks "
+                  f"128 x 128 (library: scaled_dot_product_attention on "
+                  f"(1, {bh}, {S}, {D}), {str(dtype)[6:]})")
     return out
 
 
@@ -1068,7 +1180,7 @@ def main() -> int:
     g_err, s_err = phases.run("gmem-vs-plain", lambda: check_gmem(rng, dev))
     errs = phases.run("per-op-vs-plain", lambda: check_per_op(rng, dev))
     errs.update(segment=seg_err, gather_shared=g_err, scatter_shared=s_err)
-    layer_err, flash_bf16_err = phases.run(
+    layer_err, flash_bf16_err, flash_bf16_timed_err = phases.run(
         "hand-kernels-vs-plain", lambda: check_kernel_layer(rng, dev))
     errs.update(layer_err)
     paths = {}
@@ -1092,11 +1204,21 @@ def main() -> int:
                   for name, (c, per) in paths.items()},
         "golden_entries": n_golden,
         "flash_bf16_max_abs_err": flash_bf16_err,
+        "flash_bf16_32x1024x128_max_abs_err": flash_bf16_timed_err,
         "timing_shapes": {k: v["shape"] for k, v in timing.items()},
         "device_ms": {k: v["device_ms"] for k, v in timing.items()},
         "library_device_ms": {k: v["library_device_ms"]
                               for k, v in timing.items()
                               if "library_device_ms" in v},
+        # timing rows beside the kernels line's (one kernel at a second
+        # shape or type)
+        "extra_rows": {k: {f: v[f] for f in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by")} for k, v in timing.items()
+            if k not in SOURCES},
+        "library_3d_device_ms": {k: v["library_3d_device_ms"]
+                                 for k, v in timing.items()
+                                 if "library_3d_device_ms" in v},
         "phase_ms": phases.ms, "card": card}))
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCES[k],

@@ -430,10 +430,10 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     PyTorch operations on the state's device. Nothing here reads the card
     back to the host.
 
-    DOT/SUM folds each wavefront's 16 lane terms in halves (8, 4, 2, 1)
-    and adds the result to +0.0: the order the reference's step and trace
-    engines take. The megakernel's fused segment keeps its own order
-    (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
+    DOT/SUM adds each wavefront's lane-0 term to +0.0 and then folds the
+    16 lane terms in halves (8, 4, 2, 1): the order the reference's step
+    and trace engines take. The megakernel's fused segment keeps its own
+    order (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
 
     ``shmem_depth`` bounds LOD/STO addressing (default: the shared-memory
     array's own depth)."""

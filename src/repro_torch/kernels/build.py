@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-HEADERS = ("egpu_fp32.cuh",)
+HEADERS = ("egpu_fp32.cuh", "hopper_ptx.cuh")
 # a block may use at most 227 KiB of shared memory on Hopper
 MAX_DYNAMIC_SMEM = 232_448
 
@@ -47,7 +47,7 @@ _ENTRY_POINTS = {
     "egpu_fft_r2": ("fft", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "egpu_mgs_qrd": ("qrd", (_P, _P, _P, _I, _I, _P)),
     "egpu_flash_attention": ("flash", (_I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _P)),
+                                       _I, _I, _I, _P)),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
@@ -58,6 +58,7 @@ launches = {"segment": 0, "gather_shared": 0, "scatter_shared": 0,
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -115,7 +116,10 @@ def build_all() -> dict[str, Path]:
 
 def entry_point(fn: str):
     """The ctypes function ``fn``, building and loading its library at
-    first use."""
+    first use; later calls return the same function object."""
+    got = _fns.get(fn)
+    if got is not None:
+        return got
     lib_name, argtypes = _ENTRY_POINTS[fn]
     with _lock:
         if lib_name not in _libs:
@@ -124,8 +128,9 @@ def entry_point(fn: str):
                 if ln == lib_name:
                     getattr(lib, f).argtypes = list(at)
                     getattr(lib, f).restype = ctypes.c_int
+                    _fns[f] = getattr(lib, f)
             _libs[lib_name] = lib
-    return getattr(_libs[lib_name], fn)
+    return _fns[fn]
 
 
 def check(err: int, what: str) -> None:
@@ -149,6 +154,6 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def current_stream() -> int:
-    """The handle of PyTorch's current stream, on which every kernel
-    launches."""
-    return torch.cuda.current_stream().cuda_stream
+    """The handle of PyTorch's current stream on the current device, on
+    which every kernel launches (read without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

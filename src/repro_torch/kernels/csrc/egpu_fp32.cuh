@@ -4,7 +4,9 @@
 // and written as signed zeros (the reference's execution mode), the x86
 // NaN rule (first NaN operand made quiet, else the default NaN
 // 0xFFC00000), one rounding per ADD/SUB/MUL (the __f*_rn intrinsics are
-// never contracted into an FMA), and a correctly rounded INVSQR.
+// never contracted into an FMA), tininess detected after rounding (a MUL
+// whose exact product lies below 2^-126 - 2^-151 is flushed where IEEE
+// rounds it up to 2^-126), and a correctly rounded INVSQR.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -12,6 +14,8 @@
 namespace egpu {
 
 constexpr uint32_t kDefaultNaN = 0xFFC00000u;
+constexpr uint32_t kMinNormal = 0x00800000u;             // 2^-126
+constexpr double kTinyProduct = 0x1.ffffffp-127;         // 2^-126 - 2^-151
 
 __device__ __forceinline__ uint32_t flush(uint32_t x) {
   return (x & 0x7F800000u) ? x : (x & 0x80000000u);
@@ -36,7 +40,14 @@ __device__ __forceinline__ uint32_t fp_binop(int op, uint32_t a, uint32_t b) {
   const float fa = __uint_as_float(a), fb = __uint_as_float(b);
   const float r = op == 1 ? __fadd_rn(fa, fb)
                 : op == 2 ? __fsub_rn(fa, fb) : __fmul_rn(fa, fb);
-  return nan_rule(a, b, flush(__float_as_uint(r)));
+  uint32_t w = __float_as_uint(r);
+  // x86 detects tininess after rounding; the product of two float32
+  // values is exact in float64
+  if (op != 1 && op != 2 && (w & 0x7FFFFFFFu) == kMinNormal &&
+      fabs(__dmul_rn(static_cast<double>(fa), static_cast<double>(fb)))
+          < kTinyProduct)
+    w &= 0x80000000u;
+  return nan_rule(a, b, flush(w));
 }
 
 __device__ __forceinline__ uint32_t fp_add(uint32_t a, uint32_t b) {

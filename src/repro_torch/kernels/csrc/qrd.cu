@@ -23,6 +23,16 @@
 // equal word for word. INVSQR is the shared header's correctly rounded
 // 1/sqrt, as the simulated SM's.
 //
+// Non-finite factors: the reference selects and updates column j and row
+// j by one-hot products, so a non-finite factor turns every entry it meets
+// with a 0 into NaN. A warp vote per phase tests the factors and a branch
+// writes those NaNs (aj[i] where row i of the residual holds a non-finite
+// entry off column j; rows of the residual, R and Q off column j where
+// corr, coeff and qj are non-finite; column k of R off row j where
+// rrow[k] is). The residual scan of phase 1 runs only once a non-finite
+// word has entered the residual (a warp-wide sticky flag): finite inputs
+// take none of these branches and give the same words as without them.
+//
 // Bound: bytes at the kernel path's batches (n^2 floats in, 2 n^2 out
 // against about 8 n^3 operations per matrix: 12 bytes against 10 n / 3
 // operations per element). The serial inner products and the barriers
@@ -36,6 +46,7 @@
 namespace {
 
 constexpr int kMaxN = 32;
+constexpr unsigned kWarp = 0xFFFFFFFFu;
 
 __global__ void qrd_kernel(const float* __restrict__ a, float* __restrict__ qo,
                            float* __restrict__ ro, int n) {
@@ -47,15 +58,28 @@ __global__ void qrd_kernel(const float* __restrict__ a, float* __restrict__ qo,
   __shared__ float aj[kMaxN], coeff[kMaxN], qj[kMaxN];
   __shared__ float recip;
   const int t = threadIdx.x;
+  const float nan = __int_as_float(0x7FC00000);
   const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+  bool bad = false;            // this thread has written a non-finite residual
   for (int e = t; e < nn; e += blockDim.x) {
     res[e] = a[base + e];
+    bad |= !isfinite(res[e]);
     q[e] = 0.0f;
     r[e] = 0.0f;
   }
+  // one warp is the whole CTA: a vote is the CTA's. A non-finite word
+  // stays non-finite through every update, so the flag only ever sets.
+  bool res_bad = __any_sync(kWarp, bad);
   __syncthreads();
   for (int j = 0; j < n; ++j) {
-    if (t < n) aj[t] = res[t * n + j];
+    unsigned bad_rows = 0;     // bit i: row i is non-finite off column j
+    if (res_bad) {
+      for (int i = 0; i < n; ++i) {
+        const bool nf = t < n && t != j && !isfinite(res[i * n + t]);
+        if (__ballot_sync(kWarp, nf)) bad_rows |= 1u << i;
+      }
+    }
+    if (t < n) aj[t] = (bad_rows >> t & 1u) ? nan : res[t * n + j];
     __syncthreads();
     if (t < n) {
       float acc = 0.0f;
@@ -64,13 +88,24 @@ __global__ void qrd_kernel(const float* __restrict__ a, float* __restrict__ qo,
       coeff[t] = acc;
     }
     __syncthreads();
+    float corr = 0.0f;
     if (t < n) {
-      float corr = 0.0f;
       for (int k = 0; k < n; ++k)
         corr = __fadd_rn(corr, __fmul_rn(q[t * n + k], coeff[k]));
       aj[t] = __fsub_rn(aj[t], corr);
       res[t * n + j] = __fsub_rn(res[t * n + j], corr);
+      bad |= !isfinite(res[t * n + j]);
       r[t * n + j] = __fadd_rn(r[t * n + j], coeff[t]);
+    }
+    const unsigned corr_bad = __ballot_sync(kWarp, t < n && !isfinite(corr));
+    const unsigned coeff_bad =
+        __ballot_sync(kWarp, t < n && !isfinite(coeff[t]));
+    if ((corr_bad | coeff_bad) && t < n && t != j) {
+      for (int i = 0; i < n; ++i) {
+        if (corr_bad >> i & 1u) res[i * n + t] = nan;
+        if (coeff_bad >> i & 1u) r[i * n + t] = nan;
+      }
+      bad |= corr_bad != 0;
     }
     __syncthreads();
     if (t == 0) {
@@ -82,15 +117,25 @@ __global__ void qrd_kernel(const float* __restrict__ a, float* __restrict__ qo,
     __syncthreads();
     if (t < n) qj[t] = __fmul_rn(aj[t], recip);
     __syncthreads();
+    const unsigned qj_bad = __ballot_sync(kWarp, t < n && !isfinite(qj[t]));
     if (t < n) {
       float acc = 0.0f;
       for (int i = 0; i < n; ++i)
         acc = __fadd_rn(acc, __fmul_rn(qj[i], res[i * n + t]));
-      for (int i = 0; i < n; ++i)
+      for (int i = 0; i < n; ++i) {
         res[i * n + t] = __fsub_rn(res[i * n + t], __fmul_rn(qj[i], acc));
+        bad |= !isfinite(res[i * n + t]);
+      }
       q[t * n + j] = __fadd_rn(q[t * n + j], qj[t]);
       r[j * n + t] = __fadd_rn(r[j * n + t], acc);
+      if (qj_bad && t != j)
+        for (int i = 0; i < n; ++i)
+          if (qj_bad >> i & 1u) q[i * n + t] = nan;
+      if (!isfinite(acc))
+        for (int i = 0; i < n; ++i)
+          if (i != j) r[i * n + t] = nan;
     }
+    res_bad = __any_sync(kWarp, bad);
     __syncthreads();
   }
   for (int e = t; e < nn; e += blockDim.x) {

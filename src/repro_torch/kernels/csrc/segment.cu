@@ -139,12 +139,13 @@ segment_kernel(const int32_t* __restrict__ rows, int n_rows,
         if (lane == 0) {
           wr = true;
           uint32_t acc = 0u;          // +0.0
-          if (pen && f[F_ACT_WTHREADS] >= 8) {  // fold halves: 8, 4, 2, 1
+          if (pen && f[F_ACT_WTHREADS] >= 8) {  // lane 0 onto +0.0, then
+            vals[0] = egpu::fp_add(acc, vals[0]);  // fold halves: 8, 4, 2, 1
 #pragma unroll
             for (int h = kSP / 2; h >= 1; h /= 2)
 #pragma unroll
               for (int l = 0; l < h; ++l) vals[l] = egpu::fp_add(vals[l], vals[l + h]);
-            acc = egpu::fp_add(acc, vals[0]);
+            acc = vals[0];
           } else {                    // lane by lane from +0.0
 #pragma unroll
             for (int l = 0; l < kSP; ++l) acc = egpu::fp_add(acc, vals[l]);

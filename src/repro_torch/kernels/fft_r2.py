@@ -1,10 +1,12 @@
 """Batched radix-2 DIF FFT: wrapper and plain version.
 
 ``fft_r2`` transforms the rows of ``(B, N)`` float32 re/im planes, N a
-power of two, with all log2 N butterfly passes in one kernel and the rows
-resident in shared memory between passes (CUDA: ``csrc/fft.cu``; plain:
-``fft_r2_plain``). The passes leave the spectrum in bit-reversed order;
-``natural=True`` returns it in natural order.
+power of two up to 16384, with all log2 N butterfly passes in one kernel
+and each row held in registers: a warp per row (several rows for N < 256)
+up to N = 1024, a CTA per row above, a trip through shared memory every
+few passes (CUDA: ``csrc/fft.cu``; plain: ``fft_r2_plain``). The passes
+leave the spectrum in bit-reversed order; ``natural=True`` returns it in
+natural order.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the host. For tensors on the card it launches its kernel (on the
@@ -73,9 +75,9 @@ def fft_r2_plain(re, im, natural: bool = True):
 
 
 def fft_r2(re, im, *, block_b: int = 8, natural: bool = True):
-    """``(B, N)`` float32 re/im planes -> the transformed planes. The kernel
-    runs one CTA per row; ``block_b`` is checked as the reference checks
-    it."""
+    """``(B, N)`` float32 re/im planes -> the transformed planes.
+    ``block_b`` is checked as the reference checks it; the kernel takes its
+    own rows per CTA."""
     B, n = re.shape
     if n < 1 or n & (n - 1):
         raise ValueError("N must be a power of two")

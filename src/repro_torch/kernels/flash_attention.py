@@ -7,6 +7,16 @@ over ``blk_k``-row key blocks; in causal mode the key blocks entirely in a
 plain: ``flash_attention_plain``; oracle: ``ref.flash_attention_ref``).
 It accumulates in float32, takes float32 or bfloat16 and returns q's type.
 
+The kernel tiles 128 query rows by 64 keys whatever ``blk_q`` and
+``blk_k``, and gives each row the keys the blocked recurrence gives it:
+those below its query block's last live key block (all ``S`` when not
+causal). Masked keys among them enter as there, ``p = 0`` times their
+``v`` row, so a NaN or an infinity in ``v`` there gives NaN as there; keys
+past them do not enter at all. Beside that, the blocks change only the
+order of rounding. float32 runs on the FMA units in register tiles;
+bfloat16 runs Q K^T and P V on the tensor cores (mma.sync), P V with P
+split into two bf16 parts.
+
 A wrapper takes the plain version only because the tensors it was given
 lie on the host. For tensors on the card it launches its kernel (on the
 current stream, without synchronising) or raises; it never falls back.
@@ -18,20 +28,13 @@ import math
 import torch
 
 from . import build
-from .build import MAX_DYNAMIC_SMEM, check_tensor, current_stream
+from .build import check_tensor, current_stream
 from .ref import NEG_INF
 
 # the kernel's query rows per CTA and widest head
-ROWS_PER_CTA = 32
+ROWS_PER_CTA = 128
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def flash_smem_bytes(d: int, blk_k: int) -> int:
-    """Dynamic shared memory of one flash CTA: its query rows, the K tile
-    (odd row stride), the V tile, the score tile and three row vectors."""
-    return 4 * (ROWS_PER_CTA * d + blk_k * (d | 1) + blk_k * d
-                + ROWS_PER_CTA * (blk_k + 1) + 3 * ROWS_PER_CTA)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, blk_q: int = 128,
@@ -89,19 +92,17 @@ def flash_attention(q, k, v, *, causal: bool = True, blk_q: int = 128,
     if D > MAX_D:
         raise ValueError(f"D={D}: the flash kernel takes heads of at most "
                          f"{MAX_D}")
-    smem = flash_smem_bytes(D, blk_k)
-    if smem > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"blk_k={blk_k} at D={D} needs {smem} bytes of "
-                         f"shared memory; a block may use at most "
-                         f"{MAX_DYNAMIC_SMEM}")
-    if BH > 65535 or S // blk_q > 65535:
-        raise ValueError(f"a grid of {BH} x {S // blk_q} query blocks "
-                         f"exceeds 65535 in a dimension")
+    if -(-S // ROWS_PER_CTA) > 65535:
+        raise ValueError(f"a grid of {BH} x {-(-S // ROWS_PER_CTA)} query "
+                         f"tiles exceeds 65535 in a dimension")
     out = torch.empty_like(q)
+    # rows load as 16-byte copies where D and every pointer allow
+    vec = D * q.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v))
     fn = build.entry_point("egpu_flash_attention")
     build.check(fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), BH, S, D, blk_q, blk_k,
-                   int(bool(causal)), current_stream()), "flash")
+                   v.data_ptr(), out.data_ptr(), BH, S, D, int(bool(causal)),
+                   blk_q, blk_k, int(vec), current_stream()), "flash")
     build.launches["flash"] += 1
     return out
 

@@ -45,6 +45,28 @@ def random_f32_words(rng: np.random.Generator, shape) -> np.ndarray:
     return w
 
 
+def tiny_product_words(rng: np.random.Generator, shape
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """uint32 FP32 operand pairs whose products lie around the smallest
+    normal 2**-126, with random signs: ``a`` up to 16 ulps below 1 (three
+    in four) or up to 15 above, ``b`` up to 7 ulps above 2**-126. They
+    reach all three outcomes of an FP32 MUL there: a denormal (flushed
+    either way), a normal, and an exact product just below 2**-126 that
+    IEEE rounds up to 2**-126 and x86 flushes (tiny after rounding). The
+    first four pairs are 0x3F7FFFFF x 0x00800000 with each sign."""
+    size = int(np.prod(shape))
+    a = np.where(rng.random(size) < 0.75,
+                 0x3F800000 - rng.integers(1, 17, size),
+                 0x3F800000 + rng.integers(0, 16, size))
+    b = 0x00800000 + rng.integers(0, 8, size)
+    a |= rng.integers(0, 2, size) << 31
+    b |= rng.integers(0, 2, size) << 31
+    a[:4] = [0x3F7FFFFF, 0xBF7FFFFF, 0x3F7FFFFF, 0xBF7FFFFF]
+    b[:4] = [0x00800000, 0x00800000, 0x80800000, 0x80800000]
+    return (a.astype(np.uint32).reshape(shape),
+            b.astype(np.uint32).reshape(shape))
+
+
 def random_state(rng: np.random.Generator, n_sms: int, depth: int):
     """``(regs, shmem)`` uint32 arrays for ``n_sms`` SMs with ``depth``
     shared-memory words, laid out as the register map above."""

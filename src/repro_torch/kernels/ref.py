@@ -16,9 +16,12 @@ set:
   * ADD/SUB/MUL round once each (no fused multiply-add);
   * INVSQR returns the correctly rounded ``1/sqrt(x)``.
 
-The flush is applied to the correctly rounded IEEE result, so a result
-that rounds up to the smallest normal from below it is kept where the
-x86 unit would flush it; no other value differs.
+The x86 unit detects tininess after rounding: a MUL whose exact product
+lies below 2**-126 - 2**-151 is flushed even where IEEE gradual
+underflow rounds it up to the smallest normal 2**-126. The flush of an
+ADD or SUB needs no such test: their operands are zeros or normals after
+the denormal read, so an exact sum is a multiple of 2**-149 and either
+at least 2**-126 or already denormal.
 """
 from __future__ import annotations
 
@@ -44,6 +47,10 @@ DEFAULT_NAN = -4194304        # 0xFFC00000 as int32
 _POS_INF = 0x7F800000
 _NEG_INF = -8388608           # 0xFF800000 as int32
 _SPLIT = 134217729.0          # 2**27 + 1: Veltkamp split of a float64
+_MIN_NORMAL = 0x00800000      # 2**-126
+# below this an exact product rounds, with an unbounded exponent, to a
+# value under 2**-126: x86 calls it tiny and flushes it
+_TINY_PRODUCT = 2.0 ** -126 - 2.0 ** -151
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +97,13 @@ def fp_binop(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         r = _f(a) - _f(b)
     else:
         r = _f(a) * _f(b)
-    return _nan_rule(a, b, flush_denormal(r.view(torch.int32)))
+    r = r.view(torch.int32)
+    if op not in (ALU_ADD, ALU_SUB):
+        # the product of two float32 values is exact in float64
+        exact = _f(a).to(torch.float64) * _f(b).to(torch.float64)
+        tiny = (r & 0x7FFFFFFF) == _MIN_NORMAL
+        r = torch.where(tiny & (exact.abs() < _TINY_PRODUCT), r & _SIGN, r)
+    return _nan_rule(a, b, flush_denormal(r))
 
 
 def fp_add(a, b):
@@ -191,15 +204,18 @@ def wavefront_reduce(terms: torch.Tensor, enabled: torch.Tensor,
 
     The order is pinned to the one the reference's compiled segment
     takes: lane by lane from +0.0 (lane 0 first), except that a
-    predicated row at least 8 lanes wide (``pairwise``) folds the upper
-    half onto the lower half (8, 4, 2, 1) and adds the result to +0.0."""
+    predicated row at least 8 lanes wide (``pairwise``, and every row of
+    the step engine) adds lane 0 to +0.0 and then folds the upper half
+    onto the lower half (8, 4, 2, 1). Where the fold's last add flushes a
+    negative denormal sum, that order keeps the -0.0."""
     v = torch.where(enabled, terms, torch.zeros_like(terms))
     acc = torch.zeros_like(v[..., 0])
     if pairwise:
+        v = torch.cat([fp_add(acc, v[..., 0])[..., None], v[..., 1:]], -1)
         while v.shape[-1] > 1:
             h = v.shape[-1] // 2
             v = fp_add(v[..., :h], v[..., h:])
-        return fp_add(acc, v[..., 0])
+        return v[..., 0]
     for lane in range(v.shape[-1]):
         acc = fp_add(acc, v[..., lane])
     return acc
@@ -268,15 +284,28 @@ def mgs_qrd_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     Every inner product sums its products one by one from +0.0, index 0
     first, and every multiply and add rounds once: the QRD kernel keeps
-    the same order, so the two are equal word for word."""
+    the same order, so the two are equal word for word.
+
+    The reference selects and updates column j and row j by one-hot
+    products (``x * onehot``). A non-finite factor times 0 is NaN, so
+    where the factor is non-finite every entry it meets with a 0 becomes
+    NaN; here a test of the factor stands for each such product: ``aj[i]``
+    where row i of the residual holds a non-finite entry off column j;
+    row i of the residual and of R off column j where ``corr[i]`` and
+    ``coeff[i]`` are; row i of Q off column j where ``qj[i]`` is; column
+    k of R off row j where ``rrow[k]`` is. Finite factors change nothing,
+    as their products with 0 add nothing."""
     a = a.to(torch.float32)
     B, n, _ = a.shape
     res = a.clone()
     q = torch.zeros_like(a)
     r = torch.zeros_like(a)
     zeros = a.new_zeros((B, n))
+    nan = float("nan")
     for j in range(n):
-        aj = res[:, :, j].clone()
+        off = torch.arange(n, device=a.device) != j
+        aj = torch.where(_nonfinite(res[:, :, off]).any(-1), nan,
+                         res[:, :, j])
         coeff = zeros                                   # coeff[k] = <q_k, aj>
         for i in range(n):
             coeff = coeff + q[:, i, :] * aj[:, i, None]
@@ -285,7 +314,9 @@ def mgs_qrd_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             corr = corr + q[:, :, k] * coeff[:, k, None]
         aj = aj - corr
         res[:, :, j] = res[:, :, j] - corr
+        res = torch.where(_nonfinite(corr)[:, :, None] & off, nan, res)
         r[:, :, j] = r[:, :, j] + coeff
+        r = torch.where(_nonfinite(coeff)[:, :, None] & off, nan, r)
         nrm2 = zeros[:, 0]
         for i in range(n):
             nrm2 = nrm2 + aj[:, i] * aj[:, i]
@@ -296,8 +327,14 @@ def mgs_qrd_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             rrow = rrow + qj[:, i, None] * res[:, i, :]
         res = res - qj[:, :, None] * rrow[:, None, :]
         q[:, :, j] = q[:, :, j] + qj
+        q = torch.where(_nonfinite(qj)[:, :, None] & off, nan, q)
         r[:, j, :] = r[:, j, :] + rrow
+        r = torch.where(_nonfinite(rrow)[:, None, :] & off[:, None], nan, r)
     return q, r
+
+
+def _nonfinite(x: torch.Tensor) -> torch.Tensor:
+    return ~torch.isfinite(x)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

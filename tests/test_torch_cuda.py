@@ -87,6 +87,19 @@ def test_alu_kernel_matches_plain_version(dev, typ):
 
 
 @pytest.mark.cuda
+def test_alu_kernel_flushes_tiny_products_as_x86(dev):
+    # products around 2**-126: x86 detects tininess after rounding, so
+    # 0x3F7FFFFF x 0x00800000 (lanes 0-3, each sign) is a signed zero
+    a, b = (_words(x, dev) for x in fuzz.tiny_product_words(
+        np.random.default_rng(3), (4, 512)))
+    mask = torch.ones((4, 512), dtype=torch.bool, device=dev)
+    old = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    got = simt_alu(3, 2, a, b, mask, old)
+    assert torch.equal(got, alu_plain(3, 2, a, b, mask, old))
+    assert got[0, :4].tolist() == [0, -2**31, -2**31, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("depth,span", [(64, 64), (3072, 3072), (1024, 5)])
 def test_smem_kernels_match_plain_versions(dev, depth, span):
     rng = np.random.default_rng(depth + span)
@@ -122,13 +135,15 @@ def test_dot_kernel_matches_plain_version(dev, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 64, 4096])
+@pytest.mark.parametrize("n", [2, 64, 256, 1024, 4096, 16384])
 @pytest.mark.parametrize("natural", [True, False])
 def test_fft_kernel_matches_plain_version(dev, n, natural):
+    # 37 and 5 rows fill no whole CTA (eight warp tiles up to N = 1024)
     rng = np.random.default_rng(n)
-    re, im = (torch.from_numpy(rng.standard_normal((16, n)).astype(
+    rows = 37 if n <= 1024 else 5
+    re, im = (torch.from_numpy(rng.standard_normal((rows, n)).astype(
         np.float32)).to(dev) for _ in range(2))
-    for g, w in zip(fft_r2(re, im, natural=natural),
+    for g, w in zip(fft_r2(re, im, block_b=1, natural=natural),
                     fft_r2_plain(re, im, natural)):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
@@ -144,10 +159,29 @@ def test_qrd_kernel_matches_plain_version(dev, n):
 
 
 @pytest.mark.cuda
+def test_qrd_kernel_on_non_finite_input_matches_plain_version(dev):
+    # an infinity, a NaN, a zero column (q_j = 0 * inf) and a -inf: the
+    # NaN masks the one-hot products of the reference leave
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((8, 8, 8)).astype(np.float32)
+    a[1, 0, 0], a[2, 7, 4], a[4, 1, 7] = np.inf, np.nan, -np.inf
+    a[3, :, 4] = 0.0
+    a = torch.from_numpy(a).to(dev)
+    one_nan = lambda x: torch.where(torch.isnan(x), float("nan"), x)  # noqa: E731
+    for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
+        assert torch.equal(one_nan(g).view(torch.int32),
+                           one_nan(w).view(torch.int32))
+    assert torch.isfinite(g[0]).all() and torch.isnan(g[1]).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape,blk_q,blk_k", [((3, 256, 64), 64, 32),
-                                               ((2, 96, 33), 16, 48)])
+                                               ((2, 96, 33), 16, 48),
+                                               ((2, 256, 1), 16, 256),
+                                               ((2, 320, 96), 64, 16),
+                                               ((1, 512, 128), 256, 128)])
 def test_flash_kernel_matches_plain_version(dev, dtype, causal, shape,
                                             blk_q, blk_k):
     # fp32: the kernel and the plain version sum the products in another
@@ -163,6 +197,40 @@ def test_flash_kernel_matches_plain_version(dev, dtype, causal, shape,
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("causal,shape,blk_q,blk_k", [
+    (True, (2, 192, 64), 8, 24), (True, (2, 128, 32), 16, 16),
+    (True, (1, 512, 128), 256, 128), (True, (2, 256, 64), 128, 128),
+    (True, (2, 320, 96), 64, 16), (False, (2, 80, 33), 16, 16)])
+def test_flash_kernel_on_non_finite_input_matches_plain_version(
+        dev, dtype, bad, causal, shape, blk_q, blk_k):
+    # a non-finite v enters a row as p = 0 or p > 0 times it where the
+    # row's live key blocks hold it, and not at all past them; one in k
+    # spoils the rows that see its key unmasked
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    bh, S, D = shape
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    v[0, S // 2 + 3, 1], v[-1, 5, D - 1], k[0, S // 3, 0] = bad, bad, bad
+    v[-1, S - 1, D // 2] = bad
+    q, k, v = (torch.from_numpy(x).to(dev, dtype) for x in (q, k, v))
+    got = flash_attention(q, k, v, causal=causal, blk_q=blk_q,
+                          blk_k=blk_k).float()
+    want = flash_attention_plain(q, k, v, causal, blk_q, blk_k).float()
+    for where in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(where(got), where(want))
+    fin = torch.isfinite(want)
+    assert fin.any() and not fin.all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[fin], want[fin], atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got[fin], want[fin], atol=1e-5,
                                    rtol=2.0 ** -7)
 
 

@@ -10,7 +10,8 @@ against the reference's own paths:
     interpret mode;
   * the GLD/GST port against ``simt_gather_shared`` /
     ``simt_scatter_shared`` in interpret mode, with address collisions;
-  * the pins: DOT/SUM summation order, INVSQR rounding, denormals.
+  * the pins: DOT/SUM summation order, INVSQR rounding, denormals, MUL
+    tininess after rounding.
 
 Each row is applied to the same starting state on its own: the reference
 compiles a run of rows into one XLA computation, which contracts an FP32
@@ -221,6 +222,38 @@ def test_denormal_operands_follow_reference_mode(op):
     rows = np.array([[sel, op, 2, 3, 1, 2, cond, 0, 0, 0, 0, 0, 0, 32, 16]
                      for cond in (range(6) if op == 28 else [0])], np.int32)
     _assert_same(rows, _reference(rows, st), _port(rows, st))
+
+
+@pytest.mark.parametrize("op", [3, 15], ids=["MUL", "DOT"])
+def test_mul_tininess_follows_reference_mode(op):
+    # products around 2**-126: x86 flushes an exact product below
+    # 2**-126 - 2**-151 that IEEE rounds up to 2**-126
+    regs = np.zeros((N_SMS, 512, 16), np.uint32)
+    regs[:, :, 1], regs[:, :, 2] = fuzz.tiny_product_words(
+        np.random.default_rng(op), (N_SMS, 512))
+    st = _state(op, regs=regs)
+    rows = np.array([[1 if op == 3 else 6, op, 2, 3, 1, 2, 0, 0, 0, 0, 0, 0,
+                      0, 32, 16]], np.int32)
+    want, got = _reference(rows, st), _port(rows, st)
+    _assert_same(rows, want, got)
+    if op == 3:
+        assert got[0][0][0, :4, 3].tolist() == [0, 0x80000000, 0x80000000, 0]
+
+
+def test_pairwise_fold_adds_lane_zero_to_plus_zero_first():
+    # a predicated 16-lane DOT whose lane 0 + lane 8 flushes to -0.0 and
+    # whose other terms are -0.0: -0.0 in the reference's segment too
+    regs = np.zeros((N_SMS, 512, 16), np.uint32)
+    regs[:, :, 1] = 0xBF800000                      # -1 x +0 = -0
+    regs[:, 0::16, 1], regs[:, 0::16, 2] = 0xBF800001, 0x00800000
+    regs[:, 8::16, 1], regs[:, 8::16, 2] = 0x3F800000, 0x00800000
+    regs[:, :, 5] = 1
+    st = _state(15, regs=regs)
+    rows = np.array([[6, 15, 2, 3, 1, 2, 0, 0, 0, 0, 1, 5, 0, 32, 16]],
+                    np.int32)
+    want = _reference(rows, st)
+    assert (want[0][0][:, ::16, 3] == 0x80000000).all()
+    _assert_same(rows, want, _port(rows, st))
 
 
 @pytest.mark.parametrize("sel", [1, 2, 3, 4, 5, 6, 7, 10, 11])

@@ -9,7 +9,10 @@ against the reference's own kernels in Pallas interpret mode:
     ``simt_scatter``, with address collisions and disabled lanes;
   * the step engine's DOT/SUM order against the reference's step engine
     (``repro.core.device.run_wave`` on its inline backend), at widths
-    16/8/4/1, predicated and not, over signed zeros.
+    16/8/4/1, predicated and not, over signed zeros;
+  * FP32 MUL tininess: products around 2**-126, where x86 (the
+    reference's host) detects tininess after rounding, through ``alu_ref``
+    and the step and trace engines.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ from repro.core import SMConfig as JSMConfig
 from repro.core import assemble as j_assemble
 from repro.core import device as j_device
 from repro.core.executor import pack_imem as j_pack_imem
+from repro.core import trace_engine as j_trace
 from repro.core.isa import Op
 from repro.kernels.ref import alu_ref as j_alu_ref
 from repro.kernels.simt_alu import simt_alu as j_simt_alu
@@ -28,6 +32,7 @@ from repro.kernels.simt_step import simt_gather as j_simt_gather
 from repro.kernels.simt_step import simt_scatter as j_simt_scatter
 from repro_torch.core import SMConfig
 from repro_torch.core import device as t_device
+from repro_torch.core import trace_engine as t_trace
 from repro_torch.core.executor import get_execute_backend, pack_imem
 from repro_torch.kernels import build, fuzz, ref
 from repro_torch.kernels.simt_alu import alu_plain, simt_alu
@@ -209,3 +214,81 @@ def test_step_order_pin_discriminates(op):
     other = ref.wavefront_reduce(terms, en, pairwise=False)
     assert np.array_equal(_u32(pinned), want)
     assert (_u32(other) != want).any()
+
+
+# ---------------------------------------------------------------------------
+# FP32 MUL tininess
+# ---------------------------------------------------------------------------
+
+def _tiny_regs(seed):
+    """R1 x R2 products around 2**-126 (``fuzz.tiny_product_words``)."""
+    regs = np.zeros((N_SMS, 512, 16), np.uint32)
+    regs[:, :, 1], regs[:, :, 2] = fuzz.tiny_product_words(
+        np.random.default_rng(seed), (N_SMS, 512))
+    return regs
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mul_tininess_alu_matches_reference(seed):
+    # 0x3F7FFFFF x 0x00800000 is 2**-126 - 2**-150 exactly: IEEE rounds it
+    # up to 2**-126, x86 calls it tiny after rounding and flushes it
+    regs = _tiny_regs(seed)
+    a, b = regs[:, :, 1], regs[:, :, 2]
+    got = _u32(ref.alu_ref(ref.ALU_MUL, ref.TYP_FP32, _words(a), _words(b)))
+    want = np.asarray(jax.jit(lambda x, y: j_alu_ref(
+        jnp.int32(int(Op.MUL)), jnp.int32(2), x, y))(a, b)).view(np.uint32)
+    assert np.array_equal(got, want)
+    assert got[0, :4].tolist() == [0, 0x80000000, 0x80000000, 0]
+    ieee = (a.view(np.float32) * b.view(np.float32)).view(np.uint32)
+    rounded_up = (ieee & 0x7FFFFFFF) == 0x00800000
+    assert (rounded_up & ((want & 0x7FFFFFFF) == 0)).sum() >= 8
+    assert (rounded_up & (want == ieee)).any()
+
+
+def _reference_trace(words, regs):
+    cfg = JSMConfig()
+    st = j_device.init_device_state(cfg, N_SMS).replace(
+        regs=jnp.asarray(regs))
+    fin = j_trace.run_wave_trace(cfg, "inline",
+                                 j_trace.compile_program(words, cfg),
+                                 jnp.zeros(N_SMS, jnp.int32),
+                                 jnp.zeros(N_SMS, jnp.int32), st)
+    return np.asarray(fin.regs)
+
+
+def _port_trace(words, regs):
+    cfg = SMConfig()
+    st = t_device.init_device_state(cfg, N_SMS)
+    st.regs = _words(regs)
+    zero = torch.zeros(N_SMS, dtype=torch.int32)
+    fin = t_trace.run_wave_trace(cfg, get_execute_backend("cpu"),
+                                 t_trace.compile_program(words, cfg), zero,
+                                 zero, st)
+    return _u32(fin.regs)
+
+
+@pytest.mark.parametrize("engine", ["step", "trace"])
+@pytest.mark.parametrize("op", ["MUL", "DOT"])
+def test_mul_tininess_on_the_engines_matches_reference(engine, op):
+    regs = _tiny_regs(len(op) + len(engine))
+    words = j_assemble(f"{op}.FP32 R3, R1, R2 {{w16,dfull}}\nSTOP").words
+    run = {"step": (_port_step, _reference_step),
+           "trace": (_port_trace, _reference_trace)}[engine]
+    got, want = run[0](words, regs), run[1](words, regs)
+    assert np.array_equal(got, want)
+    if op == "MUL":
+        assert got[0, :4, 3].tolist() == [0, 0x80000000, 0x80000000, 0]
+
+
+def test_step_fold_adds_lane_zero_to_plus_zero_first():
+    # lane 0 + lane 8 is a negative denormal, flushed to -0.0, and every
+    # other term is -0.0: the reference adds +0.0 to lane 0 before the
+    # fold, so its -0.0 survives (after the fold it would read +0.0)
+    regs = np.zeros((N_SMS, 512, 16), np.uint32)
+    regs[:, :, 1] = 0xBF800000                      # -1 x +0 = -0
+    regs[:, 0::16, 1], regs[:, 0::16, 2] = 0xBF800001, 0x00800000
+    regs[:, 8::16, 1], regs[:, 8::16, 2] = 0x3F800000, 0x00800000
+    words = j_assemble("DOT.FP32 R3, R1, R2 {w16,dfull}\nSTOP").words
+    want = _reference_step(words, regs)
+    assert (want[:, ::16, 3] == 0x80000000).all()
+    assert np.array_equal(_port_step(words, regs), want)

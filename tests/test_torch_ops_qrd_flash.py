@@ -66,21 +66,46 @@ def test_qrd_agrees_with_the_iss():
     np.testing.assert_allclose(r.numpy()[0], r_iss, atol=2e-4)
 
 
-def test_qrd_takes_the_column_by_index_where_the_reference_multiplies():
-    # the reference selects column j as sum_k res[:, k] * onehot[k]: an
-    # infinity anywhere in a row of the residual makes that row of column
-    # j NaN (inf * 0). The port indexes column j, so it departs from the
-    # reference exactly on non-finite inputs (ROADMAP §C).
-    rng = np.random.default_rng(1)
+def _masks(x):
+    return np.isnan(x), np.isposinf(x), np.isneginf(x)
+
+
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan],
+                         ids=["inf", "-inf", "nan"])
+@pytest.mark.parametrize("pos", [(3, 5), (0, 0), (7, 0), (0, 7), (5, 6)])
+def test_qrd_non_finite_input_matches_reference_masks(pos, value):
+    # the reference selects and updates columns by one-hot products: a
+    # non-finite factor times 0 is NaN wherever it meets a 0. The port
+    # writes those NaNs by a test of the factor, so Q's and R's NaN and
+    # infinity masks are the reference's; finite entries agree within the
+    # reference's bar, and a finite matrix in the same batch is untouched
+    rng = np.random.default_rng(pos[0] * 8 + pos[1])
     a = rng.standard_normal((2, 8, 8)).astype(np.float32)
-    a[0, 3, 5] = np.inf
-    wq, _ = jops.qrd(jnp.asarray(a))
-    gq, _ = ops.qrd(a, device="cpu")
-    wq, gq = np.asarray(wq), gq.numpy()
-    assert np.isnan(wq[0, 3, 0])            # reference: NaN in column 0
-    assert np.isfinite(gq[0, :, :5]).all()  # port: columns before 5 finite
-    # the matrix without an infinity agrees
-    np.testing.assert_allclose(gq[1], wq[1], rtol=0, atol=2e-5)
+    a[0][pos] = value
+    want = [np.asarray(x) for x in jops.qrd(jnp.asarray(a), block_b=2)]
+    got = [x.numpy() for x in ops.qrd(a, block_b=2, device="cpu")]
+    for w, g in zip(want, got):
+        for mw, mg in zip(_masks(w), _masks(g)):
+            assert np.array_equal(mw, mg)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=0, atol=2e-5)
+        assert np.isfinite(g[1]).all()
+    assert np.isnan(got[0][0]).any()
+
+
+def test_qrd_zero_column_matches_reference_masks():
+    # a finite input whose norm is 0 at column 2: INVSQR(0) = inf and
+    # q_j = 0 * inf = NaN, a non-finite factor from finite data
+    a = np.random.default_rng(3).standard_normal((2, 6, 6)).astype(
+        np.float32)
+    a[0, :, 2] = 0.0
+    want = [np.asarray(x) for x in jops.qrd(jnp.asarray(a), block_b=2)]
+    got = [x.numpy() for x in ops.qrd(a, block_b=2, device="cpu")]
+    for w, g in zip(want, got):
+        for mw, mg in zip(_masks(w), _masks(g)):
+            assert np.array_equal(mw, mg)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=0, atol=2e-5)
 
 
 def test_qrd_checks_its_arguments():
@@ -177,3 +202,34 @@ def test_flash_checks_its_arguments():
         flash_attention(x, x, x, blk_q=32, blk_k=64)
     out = flash_attention(x, x, x, blk_q=32, blk_k=32)
     assert torch.equal(out, flash_attention_plain(x, x, x, True, 32, 32))
+
+
+def _assert_same_non_finite(got, want, **tol):
+    """NaN, +inf and -inf at the same places; the finite rest within tol."""
+    for where in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(where(got), where(want))
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], **tol)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("causal,blk_q,blk_k", [(True, 16, 16),
+                                                (True, 64, 32),
+                                                (True, 32, 64),
+                                                (False, 32, 32)])
+def test_flash_non_finite_input_matches_reference_masks(bad, causal, blk_q,
+                                                        blk_k):
+    # a non-finite v at a key in some rows' future: the blocked recurrence
+    # multiplies it by p = 0 (NaN) in the rows whose live key blocks hold
+    # it and never reads it in the others; one in k spoils the rows that
+    # see its key unmasked
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal((2, 128, 16)).astype(np.float32)
+               for _ in range(3))
+    v[0, 50, 3], v[1, 100, 0], v[1, 5, 15], k[0, 70, 2] = bad, bad, bad, bad
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, blk_q=blk_q, blk_k=blk_k))
+    got = ops.flash(q, k, v, causal=causal, blk_q=blk_q, blk_k=blk_k,
+                    device="cpu").numpy()
+    assert not np.isfinite(got).all() and np.isfinite(got).any()
+    _assert_same_non_finite(got, want, rtol=0, atol=2e-5)
