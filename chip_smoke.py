@@ -15,10 +15,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      out-of-range lanes, snooped operands, guarded rows, NaN/infinite/
      denormal FP32 words, FP32 MUL and DOT products around 2**-126,
      INVSQR, every ALU op and type, shared-memory depths 64, 1024 and
-     3072; the kernel layer's dot over fuzzed words, FFT at N =
-     2...16384 in both orders, QRD at n = 5...32 with non-finite input),
-     and the flash kernel within 2e-5 in float32 and one bf16 ulp in
-     bfloat16 at D = 1...128 with blocks of 16...256;
+     3072; the ALU and STO row kernels over fuzzed rows, half of them
+     snooped with the destination as their own source; the kernel
+     layer's dot over fuzzed words, FFT at N = 2...16384 in both orders,
+     QRD at n = 5...32 with non-finite input), and the flash kernel
+     within 2e-5 in float32 and one bf16 ulp in bfloat16 at D = 1...128
+     with blocks of 16...256;
   3. drives three paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
      width, through the program entry points, each with the launch counts
      set to 0 just before it and read just after:
@@ -38,10 +40,15 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
          (32, 1024, 128) causal and (4, 128, 64) non-causal; each held
          against its plain version on the same inputs, and QRD and FFT
          cross-checked against the simulated eGPU on the card.
-     Each launch of the first three paths is repeated with
-     ``backend="cpu"`` and must give equal state, counters and profile;
-     the numerics are checked against numpy; every kernel of a path must
-     have launched in it;
+     Each launch of the first three paths is repeated with the host's
+     plain versions and must give equal state, counters and profile; the
+     numerics are checked against numpy; every kernel of a path must
+     have launched in it, and on the step and trace paths ``alu`` and
+     ``scatter`` exactly once per ALU and STO row the host executed. One
+     ALU and one STO row of each of those engines must issue one launch
+     and no PyTorch operation (a TorchDispatchMode count, with the
+     profiler's count of CUDA kernels, beside the per-op composition of
+     the same rows that the row seam replaced);
   4. reproduces the [4sm] golden entries the port reaches from
      tests/golden_cycles.json;
   5. times each kernel at its path's shapes with CUDA events beside its
@@ -49,8 +56,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      PyTorch call computes the same function, that call (timed only);
      the kernel and that call are timed once more on the card alone
      (``device_ms``: queued behind a sleep kernel, so the host's cost
-     per launch is hidden); two more rows time ``fft`` at FFT-4096 x 1024
-     (a CTA per row) and ``flash`` in bfloat16;
+     per launch is hidden); more rows time ``fft`` at FFT-4096 x 1024
+     (a CTA per row), ``flash`` in bfloat16, the tile forms of ``alu``
+     and ``scatter``, and a whole ALU and STO handler call beside the
+     per-op composition of the same row, in turns;
   6. prints the ``kernels`` JSON line, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -287,8 +296,9 @@ def check_gmem(rng, dev) -> tuple[int, int]:
 
 def check_per_op(rng, dev) -> dict[str, int]:
     """The step path's ALU, LOD and STO kernels against their plain
-    versions: every op x type over NaN, infinite and denormal words, and
-    collisions and wild disabled addresses at depths 64, 1024, 3072."""
+    versions: the tile forms over every op x type with NaN, infinite and
+    denormal words, and collisions and wild disabled addresses at depths
+    64, 1024, 3072; then the row kernels (``check_rows``)."""
     import torch
     from repro_torch.kernels import fuzz
     from repro_torch.kernels.simt_alu import alu_plain, simt_alu
@@ -336,6 +346,50 @@ def check_per_op(rng, dev) -> dict[str, int]:
             worst["scatter"] = max(worst["scatter"], words_equal(
                 f"scatter depth={depth}", simt_scatter(mem, wild, vals, mask),
                 scatter_plain(mem, wild, vals, mask)))
+    worst_rows = check_rows(rng, dev)
+    return {k: max(worst[k], worst_rows.get(k, 0)) for k in worst}
+
+
+def check_rows(rng, dev) -> dict[str, int]:
+    """The ALU and STO row kernels against their plain row versions on the
+    same card state: fuzzed rows (every ALU op and type, guarded words,
+    partial shapes, addresses in and out of the bound), half of them
+    snooped with the destination as their own source, at the step path's
+    shape (512 threads, 3072 words) and at a partial block (96 threads,
+    a 40-word bound on a 64-word image)."""
+    import torch
+    from repro_torch.core import SMConfig
+    from repro_torch.core.executor import FusedRow
+    from repro_torch.kernels import fuzz
+    from repro_torch.kernels.simt_alu import alu_row_plain, simt_alu_row
+    from repro_torch.kernels.simt_step import simt_sto_row, sto_row_plain
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    worst = {"alu": 0, "scatter": 0}
+    for n_threads, width, bound in ((512, 3072, None), (96, 64, 40)):
+        cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
+        depth = bound or width
+        for sel, name in ((1, "alu"), (3, "scatter")):
+            for fields in fuzz.random_rows(rng, 150, sels=(sel,),
+                                           n_threads=n_threads):
+                if rng.random() < 0.5:       # x = 1, ra = rd, an ext_a
+                    fields[7], fields[4] = 1, fields[3]
+                    fields[8] = rng.integers(0, 32)
+                row = FusedRow.from_fields(fields)
+                regs, shmem = (t(a) for a in fuzz.random_state(rng, 4, width))
+                oob = torch.from_numpy(rng.random(4) < 0.3).to(dev)
+                if sel == 1:
+                    worst[name] = max(worst[name], words_equal(
+                        f"alu row {fields.tolist()}",
+                        simt_alu_row(cfg, row, regs.clone()),
+                        alu_row_plain(cfg, row, regs)))
+                    continue
+                got = simt_sto_row(cfg, row, regs, shmem.clone(),
+                                   oob.clone(), depth)
+                want = sto_row_plain(cfg, row, regs, shmem, oob, depth)
+                for what, g, w in zip(("shmem", "oob"), got, want):
+                    worst[name] = max(worst[name], words_equal(
+                        f"sto row {what} {fields.tolist()}", g, w))
     return worst
 
 
@@ -603,14 +657,23 @@ def step_path(rng):
         run_cholesky_batch, run_fft_batch, run_qrd_batch)
 
     per, keep = {}, {}
+    host_rows = counted_host_backend()
 
     def both(name, fn, **kw):
-        """``fn(DeviceConfig)`` on the card and on the host."""
+        """``fn(DeviceConfig)`` on the card and on the host; the card must
+        launch ``alu`` and ``scatter`` once per ALU and STO row the host
+        executed."""
         (out, res), got = on_card(lambda: fn(DeviceConfig(n_sms=4, **kw)))
-        out_c, res_c = fn(DeviceConfig(n_sms=4, backend="cpu", **kw))
+        host_rows.update(alu=0, scatter=0)
+        out_c, res_c = fn(DeviceConfig(n_sms=4, backend=COUNTED_HOST, **kw))
         same_launch(name, res, res_c)
         assert res.halted and not bool(res.oob.any()), name
-        per[name] = dict(launches=got, cycles=res.cycles, waves=res.n_waves,
+        for k, n_rows in host_rows.items():
+            if got[k] != n_rows:
+                raise AssertionError(f"{name}: {got[k]} {k} launches on the "
+                                     f"card for {n_rows} rows")
+        per[name] = dict(launches=got, rows=dict(host_rows),
+                         cycles=res.cycles, waves=res.n_waves,
                          steps=res.steps)
         return out, res
 
@@ -633,7 +696,7 @@ def step_path(rng):
                   engine="step", sm=SMConfig(max_steps=200_000))
     ref = np.fft.fft(xs, axis=1)
     np.testing.assert_allclose(X, ref, rtol=0, atol=2e-5 * np.abs(ref).max())
-    keep["fft64"] = (xs, res)
+    keep["fft64"] = (xs, res, per["fft64"]["rows"])
 
     # QRD-16 over 16 blocks
     As = rng.standard_normal((16, 16, 16)).astype(np.float32)
@@ -641,7 +704,7 @@ def step_path(rng):
         *run_qrd_batch(As, device=d)), engine="step",
         sm=SMConfig(imem_depth=1024, max_steps=200_000))
     check_qr(*QR, As)
-    keep["qrd16"] = (As, res)
+    keep["qrd16"] = (As, res, per["qrd16"]["rows"])
 
     # the predicated Cholesky-16 factor + forward solve over 16 blocks
     Ac, bc = spd_batch(rng, 16)
@@ -665,9 +728,154 @@ def step_path(rng):
     return check_path("step-path", per), per, keep
 
 
+# the host's plain versions, counting the ALU and STO rows they execute
+COUNTED_HOST = "cpu-counted"
+
+
+def counted_host_backend() -> dict[str, int]:
+    """Register ``COUNTED_HOST``: the ``"cpu"`` backend whose row seam
+    counts its calls; returns the counts (kernel names as keys)."""
+    import dataclasses
+
+    from repro_torch.core.executor import (get_execute_backend,
+                                           register_backend)
+
+    cpu = get_execute_backend("cpu")
+    rows = {"alu": 0, "scatter": 0}
+
+    def counted(name, fn):
+        def row(*args):
+            rows[name] += 1
+            return fn(*args)
+        return row
+
+    register_backend(dataclasses.replace(
+        cpu, name=COUNTED_HOST, alu_row=counted("alu", cpu.alu_row),
+        sto_row=counted("scatter", cpu.sto_row)))
+    return rows
+
+
+def composed_handler(cfg, row):
+    """The per-op composition of an ALU or STO row, the handler body the
+    row seam replaced: the operand and destination columns, masks and
+    address arithmetic in PyTorch around the tile-form kernel, and a copy
+    of the register file for the ALU's result. The row seam's
+    yardstick."""
+    import torch
+    from repro_torch.core.executor import row_eff, row_operand
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.simt_alu import simt_alu
+    from repro_torch.kernels.simt_step import simt_scatter
+
+    d = row.d
+
+    def h_alu(s):
+        regs, shmem, gmem, oob = s
+        res = simt_alu(d["opcode"], d["typ"],
+                       row_operand(row, regs, d["ra"], d["ext_a"]),
+                       row_operand(row, regs, d["rb"], d["ext_b"]),
+                       row_eff(cfg.n_threads, row, regs),
+                       regs[:, :, d["rd"]].contiguous())
+        out = regs.clone()
+        out[:, :, d["rd"]] = res
+        return out, shmem, gmem, oob
+
+    def h_sto(s):
+        regs, shmem, gmem, oob = s
+        depth = shmem.shape[1]
+        m = row_eff(cfg.n_threads, row, regs)
+        addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                          .to(torch.int64) + d["imm"])
+        bad = m & ((addr < 0) | (addr >= depth))
+        shmem = simt_scatter(shmem, addr, regs[:, :, d["rd"]].contiguous(),
+                             m & ~bad)
+        return regs, shmem, gmem, oob | bad.any(dim=1)
+
+    return {1: h_alu, 3: h_sto}[row.sel]
+
+
+def issue_counts(fn) -> dict:
+    """What one call of ``fn`` issues, after a warm-up call: the kernels
+    our wrappers launched (their counts), the PyTorch operations
+    dispatched (a TorchDispatchMode), and the CUDA kernels and the
+    device memory copies and sets the profiler saw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import build
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    torch.cuda.synchronize()
+    before = sum(build.launches.values())
+    ops = Ops()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with ops:
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in on_card)
+    return dict(wrapper_launches=sum(build.launches.values()) - before,
+                torch_ops=len(ops.names), ops=sorted(set(ops.names)),
+                cuda_kernels=len(on_card) - copies, device_copies=copies)
+
+
+def row_issue(engine: str) -> dict:
+    """The first ALU and STO rows of FFT-64 as ``engine`` ("step" or
+    "trace") dispatches them, through the execute stage on the card over a
+    wave of 4 SMs x 512 threads with a 3072-word shared memory: what each
+    row issues (``issue_counts``), and what the per-op composition of the
+    same row issues (``composed``). The row seam must be one launch and no
+    PyTorch operation."""
+    import torch
+    from repro_torch.core import SMConfig, compile_program, device
+    from repro_torch.core.executor import (get_execute_backend,
+                                           make_data_handlers, pack_imem)
+    from repro_torch.core.programs.fft import fft_program
+
+    cfg = SMConfig(n_threads=32, dim_x=32, max_steps=200_000)
+    words = fft_program(64).words
+    if engine == "step":
+        issue = device._issue_table(cfg, *pack_imem(words, cfg.imem_depth))
+        rows = [issue(pc).row for pc in range(len(words))]
+    else:
+        rows = list(compile_program(words, cfg).rows)
+    dev = torch.device("cuda")
+    n = 4
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    state = (torch.zeros((n, 512, 16), dtype=torch.int32, device=dev),
+             torch.zeros((n, 3072), dtype=torch.int32, device=dev),
+             torch.zeros((64,), dtype=torch.int32, device=dev),
+             torch.zeros((n,), dtype=torch.bool, device=dev))
+    out = {}
+    for sel, name in ((1, "alu"), (3, "sto")):
+        row = next(r for r in rows if r.sel == sel)
+        h = make_data_handlers(cfg, get_execute_backend("cuda"), row, idx,
+                               idx)[sel]
+        out[name] = issue_counts(lambda: h(state))
+        out[name]["composed"] = issue_counts(
+            lambda: composed_handler(cfg, row)(state))
+        if out[name]["wrapper_launches"] != 1 or out[name]["torch_ops"]:
+            raise AssertionError(f"an {name} row on the {engine} engine "
+                                 f"issued {out[name]}")
+    return out
+
+
 def trace_path(keep):
     """FFT-64 and QRD-16 on the trace engine: word for word the step
-    path's runs on the card, counters included."""
+    path's runs on the card, counters included, with one ``alu`` and one
+    ``scatter`` launch per ALU and STO row the step path's host run
+    counted."""
     from repro_torch.convert import launch_result_to_numpy
     from repro_torch.core import DeviceConfig, SMConfig
     from repro_torch.core.programs import run_fft_batch, run_qrd_batch
@@ -681,8 +889,12 @@ def trace_path(keep):
                 imem_depth=1024, max_steps=200_000)))[2],
     }
     for name, fn in runs.items():
-        inputs, step_res = keep[name]
+        inputs, step_res, rows = keep[name]
         res, got = on_card(lambda: fn(inputs))
+        for k, n_rows in rows.items():
+            if got[k] != n_rows:
+                raise AssertionError(f"{name}: {got[k]} {k} launches on the "
+                                     f"trace engine for {n_rows} rows")
         assert res.engine == "trace"
         g, w = launch_result_to_numpy(res), launch_result_to_numpy(step_res)
         for k in ("regs", "shmem", "gmem", "oob"):
@@ -692,7 +904,8 @@ def trace_path(keep):
         for k in ("cycles", "steps", "halted"):
             assert getattr(res, k) == getattr(step_res, k), (name, k)
         assert np.array_equal(res.cycles_by_class, step_res.cycles_by_class)
-        per[name] = dict(launches=got, cycles=res.cycles, waves=res.n_waves)
+        per[name] = dict(launches=got, rows=rows, cycles=res.cycles,
+                         waves=res.n_waves)
     return check_path("trace-path", per), per
 
 
@@ -1007,47 +1220,113 @@ def with_bounds(timing: dict[str, dict]) -> dict[str, dict]:
 
 def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     """ALU, LOD and STO at the step path's shapes: one wave of four
-    512-thread SMs over a 3072-word shared memory."""
+    512-thread SMs with 16 registers and a 3072-word shared memory.
+    ``alu`` and ``scatter`` are the row kernels the step and trace engines
+    launch (one MUL.FP32 row; one STO row at random addresses), each held
+    to its plain row version; ``alu_row`` and ``sto_row`` time a whole
+    handler call of the execute stage beside the per-op composition of
+    the same row (``composed_handler``), in turns; ``alu_tile`` and
+    ``scatter_tile`` time the tile forms at the per-op shapes."""
     import torch
-    from repro_torch.kernels.simt_alu import alu_plain, simt_alu
+    from repro_torch.core import SMConfig
+    from repro_torch.core.executor import (FIELDS, FusedRow,
+                                           get_execute_backend,
+                                           make_data_handlers)
+    from repro_torch.kernels.simt_alu import (alu_plain, alu_row_plain,
+                                              simt_alu, simt_alu_row)
     from repro_torch.kernels.simt_step import (
-        gather_plain, scatter_plain, simt_gather, simt_scatter)
+        gather_plain, scatter_plain, simt_gather, simt_scatter,
+        simt_sto_row, sto_row_plain)
 
     n, depth, lanes = 4, 3072, 4 * 512
+    cfg = SMConfig()
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     f32 = lambda shape: t(rng.standard_normal(shape).astype(  # noqa: E731
         np.float32).view(np.int32))
+
+    def row(**f):
+        base = dict(sel=1, opcode=3, typ=2, rd=3, ra=4, rb=5, imm=0, x=0,
+                    ext_a=0, ext_b=0, pen=0, preg=0, pneg=0, act_waves=32,
+                    act_wthreads=16)
+        base.update(f)
+        return FusedRow.from_fields([base[k] for k in FIELDS])
+
+    addr_np = rng.integers(0, depth, (n, 512))
+    touched = sum(np.unique(r).size for r in addr_np)
+    regs = f32((n, 512, 16))
+    regs[:, :, 1] = t(addr_np.astype(np.int32))
+    shmem = f32((n, depth))
+    oob = torch.zeros(n, dtype=torch.bool, device=dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    mul = row()                                # MUL.FP32 R3, R4, R5
+    sto = row(sel=3, opcode=11, typ=0, rd=4, ra=1, rb=0)   # STO R4, (R1)+0
+    state = (regs, shmem, torch.zeros(64, dtype=torch.int32, device=dev), oob)
+    # bytes: the columns a row reads once and the words it writes once
+    alu_bytes, sto_bytes = lanes * (4 + 4 + 4), lanes * (4 + 4) + 4 * touched
+    out = {}
+    out["alu"] = dict(
+        ms=cuda_time_ms(lambda: simt_alu_row(cfg, mul, regs), iters),
+        device_ms=cuda_device_ms(lambda: simt_alu_row(cfg, mul, regs)),
+        plain_ms=cuda_time_ms(lambda: alu_row_plain(cfg, mul, regs), iters),
+        bytes=alu_bytes, ops=lanes,
+        shape=f"ALU row MUL.FP32 in place: {n} x 512 threads")
+    out["scatter"] = dict(
+        ms=cuda_time_ms(lambda: simt_sto_row(cfg, sto, regs, shmem, oob,
+                                             depth), iters),
+        device_ms=cuda_device_ms(lambda: simt_sto_row(cfg, sto, regs, shmem,
+                                                      oob, depth)),
+        plain_ms=cuda_time_ms(lambda: sto_row_plain(cfg, sto, regs, shmem,
+                                                    oob, depth), iters),
+        bytes=sto_bytes, ops=0,
+        shape=f"STO row in place: {n} x 512 threads, random addresses in a "
+              f"{depth}-word image")
+    # a whole handler call (the step and trace engines' unit) beside the
+    # per-op composition of the same row, in turns
+    for name, r, k, nbytes, nops in (("alu_row", mul, "alu", alu_bytes, lanes),
+                                     ("sto_row", sto, "scatter", sto_bytes,
+                                      0)):
+        h = make_data_handlers(cfg, get_execute_backend("cuda"), r, idx,
+                               idx)[r.sel]
+        p = composed_handler(cfg, r)
+        out[name] = dict(
+            ms=cuda_time_ms(lambda: h(state), iters),
+            composed_ms=cuda_time_ms(lambda: p(state), iters),
+            device_ms=cuda_device_ms(lambda: h(state)),
+            composed_device_ms=cuda_device_ms(lambda: p(state)),
+            ms_2=cuda_time_ms(lambda: h(state), iters),
+            composed_ms_2=cuda_time_ms(lambda: p(state), iters),
+            plain_ms=out[k]["plain_ms"], library_ms=None,
+            bytes=nbytes, ops=nops,
+            shape=f"a whole {name[:3].upper()} handler call, "
+                  f"{out[k]['shape']}")
+    # the tile forms (ops.alu and the tests)
     a, b, old = f32((n, 512)), f32((n, 512)), f32((n, 512))
     mask = torch.ones((n, 512), dtype=torch.bool, device=dev)
-    out = {}
-    # FP32 MUL, the FFT butterfly's and QRD projection's ALU row
-    out["alu"] = dict(
+    out["alu_tile"] = dict(
         ms=cuda_time_ms(lambda: simt_alu(3, 2, a, b, mask, old), iters),
         device_ms=cuda_device_ms(lambda: simt_alu(3, 2, a, b, mask, old)),
         plain_ms=cuda_time_ms(lambda: alu_plain(3, 2, a, b, mask, old),
-                              iters),
+                              iters), library_ms=None,
         bytes=lanes * (4 + 4 + 1 + 4 + 4), ops=lanes,
-        shape=f"MUL.FP32: {n} x 512 lanes")
-    mem = f32((n, depth))
-    addr_np = rng.integers(0, depth, (n, 512))
+        shape=f"tile MUL.FP32: {n} x 512 lanes")
     addr = t(addr_np.astype(np.int32))
-    touched = sum(np.unique(row).size for row in addr_np)
     out["gather"] = dict(
-        ms=cuda_time_ms(lambda: simt_gather(mem, addr, mask, old), iters),
-        device_ms=cuda_device_ms(lambda: simt_gather(mem, addr, mask, old)),
-        plain_ms=cuda_time_ms(lambda: gather_plain(mem, addr, mask, old),
+        ms=cuda_time_ms(lambda: simt_gather(shmem, addr, mask, old), iters),
+        device_ms=cuda_device_ms(lambda: simt_gather(shmem, addr, mask,
+                                                     old)),
+        plain_ms=cuda_time_ms(lambda: gather_plain(shmem, addr, mask, old),
                               iters),
         bytes=lanes * (4 + 1 + 4 + 4) + 4 * touched, ops=0,
         shape=f"LOD: {n} x 512 lanes, random addresses in a "
               f"{depth}-word image")
-    out["scatter"] = dict(
-        ms=cuda_time_ms(lambda: simt_scatter(mem, addr, a, mask), iters),
-        device_ms=cuda_device_ms(lambda: simt_scatter(mem, addr, a, mask)),
-        plain_ms=cuda_time_ms(lambda: scatter_plain(mem, addr, a, mask),
-                              iters),
+    out["scatter_tile"] = dict(
+        ms=cuda_time_ms(lambda: simt_scatter(shmem, addr, a, mask), iters),
+        device_ms=cuda_device_ms(lambda: simt_scatter(shmem, addr, a, mask)),
+        plain_ms=cuda_time_ms(lambda: scatter_plain(shmem, addr, a, mask),
+                              iters), library_ms=None,
         bytes=2 * n * depth * 4 + lanes * (4 + 4 + 1), ops=0,
-        shape=f"STO: {n} x 512 lanes, random addresses in a "
-              f"{depth}-word image")
+        shape=f"tile STO (the image copied): {n} x 512 lanes, random "
+              f"addresses in a {depth}-word image")
     return out
 
 
@@ -1188,6 +1467,8 @@ def main() -> int:
     counts, per, keep = phases.run("step-path", lambda: step_path(rng))
     paths["step-path"] = (counts, per)
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
+    per_row = phases.run("row-issue", lambda: {
+        "step-path": row_issue("step"), "trace-path": row_issue("trace")})
     counts, per, path_flash_err = phases.run(
         "kernel-path", lambda: kernel_path(rng))
     paths["kernel-path"] = (counts, per)
@@ -1200,7 +1481,9 @@ def main() -> int:
     # set to 0 just before it and read just after)
     launches = {k: sum(c[k] for c, _ in paths.values()) for k in SOURCES}
     print(json.dumps({
-        "paths": {name: {"launches": c, "per_workload": per}
+        "paths": {name: {"launches": c, "per_workload": per,
+                         **({"per_row": per_row[name]}
+                            if name in per_row else {})}
                   for name, (c, per) in paths.items()},
         "golden_entries": n_golden,
         "flash_bf16_max_abs_err": flash_bf16_err,
@@ -1214,7 +1497,8 @@ def main() -> int:
         # shape or type)
         "extra_rows": {k: {f: v[f] for f in (
             "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by")} for k, v in timing.items()
+            "bound_ms", "bound_by", "composed_ms", "composed_device_ms", "ms_2",
+            "composed_ms_2") if f in v} for k, v in timing.items()
             if k not in SOURCES},
         "library_3d_device_ms": {k: v["library_3d_device_ms"]
                                  for k, v in timing.items()

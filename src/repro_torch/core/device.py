@@ -268,14 +268,15 @@ def run_wave(cfg: SMConfig, backend: ExecBackend, imem_lo, imem_hi,
     ``max_steps`` fuel and the pc range test) runs on the host in Python
     integers, and each data instruction is dispatched into
     ``executor.make_data_handlers`` on the state's device. The host never
-    reads the card inside the loop."""
+    reads the card inside the loop. The wave runs on its own copy of the
+    data state (``trace_engine.owned_data``): ``state`` is not written."""
     device = state.regs.device
     n_sms = state.regs.shape[0]
     bidx = trace_engine._wave_index(block_idx, device)
     pidx = trace_engine._wave_index(prog_idx, device)
     issue = _issue_table(cfg, imem_lo, imem_hi)
     handlers: dict[int, Any] = {}
-    data = (state.regs, state.shmem, state.gmem, state.oob)
+    data = trace_engine.owned_data(state)
     pc, ret_sp, loop_sp = state.pc, state.ret_sp, state.loop_sp
     ret_stack = [int(v) for v in state.ret_stack]
     loop_ctr = [int(v) for v in state.loop_ctr]

@@ -25,9 +25,9 @@ This module holds the execute stage of every engine:
     ``kernels.simt_step.simt_segment``;
   * ``exec_segment`` — a fused run through the segment kernel;
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
-    per-op kernels) and ``"cpu"`` (tensors on the host, their plain
-    versions), each with the per-op seam ``alu``/``lod``/``sto``/``gld``/
-    ``gst``;
+    kernels) and ``"cpu"`` (tensors on the host, their plain versions),
+    each with the seam ``alu_row``/``sto_row`` (a whole row, on the card
+    one launch in place) and ``lod``/``gld``/``gst`` (one port op);
   * ``make_data_handlers`` — the 12-way data path of one decoded
     instruction, which the step and trace engines run row by row and the
     megakernel runs for its global-port rows;
@@ -142,6 +142,11 @@ FIELDS = ("sel", "opcode", "typ", "rd", "ra", "rb", "imm", "x",
           "act_waves", "act_wthreads")
 
 
+# the I-word width of each field a kernel indexes or branches on
+_FIELD_LIMITS = {"sel": 12, "opcode": 64, "typ": 4, "rd": 16, "ra": 16,
+                 "rb": 16, "x": 2, "ext_a": 32, "ext_b": 32, "pen": 2,
+                 "preg": 16, "pneg": 2}
+
 # ---------------------------------------------------------------------------
 # fused rows (the megakernel engine's unit of work)
 # ---------------------------------------------------------------------------
@@ -164,6 +169,26 @@ class FusedRow:
         return FusedRow(sel=f.pop("sel"), d=f,
                         act_waves=f.pop("act_waves"),
                         act_wthreads=f.pop("act_wthreads"))
+
+    @functools.cached_property
+    def fields(self) -> tuple:
+        """The row as one line of a ``FIELDS``-ordered table, the order in
+        which the row kernels take it by value. Raises if a field lies
+        outside its I-word width, since the kernels index with them."""
+        f = dict(self.d, sel=self.sel, act_waves=self.act_waves,
+                 act_wthreads=self.act_wthreads)
+        for name, hi in _FIELD_LIMITS.items():
+            if not 0 <= f[name] < hi:
+                raise ValueError(f"row field {name}={f[name]} outside "
+                                 f"[0, {hi})")
+        if not 1 <= f["act_waves"] <= MAX_WAVES \
+                or not 1 <= f["act_wthreads"] <= N_SP:
+            raise ValueError(f"active shape {f['act_waves']} x "
+                             f"{f['act_wthreads']} outside {MAX_WAVES} x "
+                             f"{N_SP}")
+        if not -2**31 <= f["imm"] < 2**31:
+            raise ValueError(f"imm={f['imm']} is not a 32-bit word")
+        return tuple(f[name] for name in FIELDS)
 
     def active(self, n_threads: int, device) -> torch.Tensor:
         """The (512,) flexible-ISA thread mask."""
@@ -336,16 +361,19 @@ def _last_writer_write(mem, addr, vals, do):
 @dataclasses.dataclass(frozen=True)
 class ExecBackend:
     """One named execute backend: the device the launch keeps its state
-    on, and the per-op seam the step and trace engines dispatch into —
-    ``alu(op, typ, a, b, mask, old)``, ``lod(shmem, addr, mask, old)``,
-    ``sto(shmem, addr, vals, do)``, ``gld(gmem, addr, mask, old)`` and
+    on, and the seam the step and trace engines dispatch into. ALU and STO
+    rows go whole: ``alu_row(cfg, row, regs)`` returns the new register
+    file and ``sto_row(cfg, row, regs, shmem, oob, depth)`` the new
+    ``(shmem, oob)``; either may write the tensors it is given in place,
+    so the engines hand it state they own. The other ports are per op:
+    ``lod(shmem, addr, mask, old)``, ``gld(gmem, addr, mask, old)`` and
     ``gst(gmem, addr, vals, do)``."""
 
     name: str
     device: str
-    alu: Callable
+    alu_row: Callable
     lod: Callable
-    sto: Callable
+    sto_row: Callable
     gld: Callable
     gst: Callable
 
@@ -382,14 +410,15 @@ def backend_device(name: str) -> torch.device:
     return torch.device(dev)
 
 
-# the card: the five kernels; the host: their plain versions
+# the card: the five kernels (ALU and STO rows in place); the host: their
+# plain versions (out of place)
 register_backend(ExecBackend(
-    name="cuda", device="cuda", alu=simt_alu.simt_alu,
-    lod=simt_step.simt_gather, sto=simt_step.simt_scatter,
+    name="cuda", device="cuda", alu_row=simt_alu.simt_alu_row,
+    lod=simt_step.simt_gather, sto_row=simt_step.simt_sto_row,
     gld=simt_step.simt_gather_shared, gst=simt_step.simt_scatter_shared))
 register_backend(ExecBackend(
-    name="cpu", device="cpu", alu=simt_alu.alu_plain,
-    lod=simt_step.gather_plain, sto=simt_step.scatter_plain,
+    name="cpu", device="cpu", alu_row=simt_alu.alu_row_plain,
+    lod=simt_step.gather_plain, sto_row=simt_step.sto_row_plain,
     gld=simt_step.gather_shared_plain, gst=simt_step.scatter_shared_plain))
 
 
@@ -416,6 +445,42 @@ def _active(n_threads: int, act_waves: int, act_wthreads: int, n_sms: int,
     return one.expand(n_sms, MAX_THREADS).contiguous()
 
 
+def row_pgate(row: FusedRow, regs: torch.Tensor) -> torch.Tensor | None:
+    """The row's predicate gate over an SM batch, (n_sms, 512) bool: bit 0
+    of each thread's ``preg``, negated by ``pneg``; None on a legacy PEN=0
+    word."""
+    d = row.d
+    if not d["pen"]:
+        return None
+    p = (regs[:, :, d["preg"]] & 1) != 0
+    return ~p if d["pneg"] else p
+
+
+def row_active(n_threads: int, row: FusedRow, regs: torch.Tensor
+               ) -> torch.Tensor:
+    """The row's flexible-ISA thread mask over an SM batch."""
+    return _active(n_threads, row.act_waves, row.act_wthreads,
+                   regs.shape[0], regs.device)
+
+
+def row_eff(n_threads: int, row: FusedRow, regs: torch.Tensor
+            ) -> torch.Tensor:
+    """The row's write and port mask: the active shape AND the predicate
+    gate."""
+    p = row_pgate(row, regs)
+    act = row_active(n_threads, row, regs)
+    return act if p is None else act & p
+
+
+def row_operand(row: FusedRow, regs: torch.Tensor, r: int, ext: int
+                ) -> torch.Tensor:
+    """Source register ``r`` of every thread, (n_sms, 512) contiguous; with
+    snooping (X=1) thread t reads ``regs[:, ext*16 + lane, r]``."""
+    if row.d["x"] == 1:
+        return regs[:, ext * N_SP + _lanes(regs.device)[1], r]
+    return regs[:, :, r].contiguous()
+
+
 def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
                        prog_idx, *, shmem_depth: int | None = None):
     """The 12-way data-path switch body of one decoded instruction.
@@ -435,6 +500,12 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     and trace engines take. The megakernel's fused segment keeps its own
     order (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
 
+    An ALU or STO row is one call into the backend's row seam and issues
+    no PyTorch operation of its own; on the card that call is one launch
+    that writes the state in place, so the state handed to these handlers
+    must be the engine's own (``device.run_wave`` and
+    ``trace_engine.run_wave_trace`` copy it once per wave).
+
     ``shmem_depth`` bounds LOD/STO addressing (default: the shared-memory
     array's own depth)."""
     d = row.d
@@ -444,19 +515,13 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     snoop = d["x"] == 1
 
     def pgate(regs):
-        """The predicate gate alone, or None on a legacy PEN=0 word."""
-        if not d["pen"]:
-            return None
-        p = (regs[:, :, d["preg"]] & 1) != 0               # (n_sms, 512)
-        return ~p if d["pneg"] else p
+        return row_pgate(row, regs)
 
     def active(regs):
-        return _active(cfg.n_threads, row.act_waves, row.act_wthreads,
-                       regs.shape[0], regs.device)
+        return row_active(cfg.n_threads, row, regs)
 
     def eff(regs):
-        p = pgate(regs)
-        return active(regs) if p is None else active(regs) & p
+        return row_eff(cfg.n_threads, row, regs)
 
     def col(regs, r):
         return regs[:, :, r].contiguous()                  # (n_sms, 512)
@@ -466,27 +531,20 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
         out[:, :, r] = vals
         return out
 
-    def operand(regs, r, ext):
-        # snoop (X=1) gathers regs[ext*16 + lane]
-        if snoop:
-            return regs[:, ext * N_SP + _lanes(regs.device)[1], r]
-        return col(regs, r)
-
     def operands(regs):
-        return operand(regs, ra, d["ext_a"]), operand(regs, rb, d["ext_b"])
+        return (row_operand(row, regs, ra, d["ext_a"]),
+                row_operand(row, regs, rb, d["ext_b"]))
 
     def addr_of(regs):
-        return ref.wrap32(operand(regs, ra, d["ext_a"]).to(torch.int64)
-                          + imm)
+        return ref.wrap32(row_operand(row, regs, ra, d["ext_a"])
+                          .to(torch.int64) + imm)
 
     def h_identity(s):
         return s
 
     def h_alu(s):
         regs, shmem, gmem, oob = s
-        a_u, b_u = operands(regs)
-        res = backend.alu(op, typ, a_u, b_u, eff(regs), col(regs, rd))
-        return set_col(regs, rd, res), shmem, gmem, oob
+        return backend.alu_row(cfg, row, regs), shmem, gmem, oob
 
     def h_lod(s):
         regs, shmem, gmem, oob = s
@@ -501,11 +559,8 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     def h_sto(s):
         regs, shmem, gmem, oob = s
         depth = shmem_depth if shmem_depth is not None else shmem.shape[1]
-        m = eff(regs)
-        addr = addr_of(regs)
-        bad = m & ((addr < 0) | (addr >= depth))
-        shmem = backend.sto(shmem, addr, col(regs, rd), m & ~bad)
-        return regs, shmem, gmem, oob | bad.any(dim=1)
+        shmem, oob = backend.sto_row(cfg, row, regs, shmem, oob, depth)
+        return regs, shmem, gmem, oob
 
     def h_lodi(s):
         regs, shmem, gmem, oob = s

@@ -154,6 +154,18 @@ def _wave_index(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
 
 
+def owned_data(state) -> tuple:
+    """A wave's data state ``(regs, shmem, gmem, oob)`` for the step and
+    trace engines: the three tensors the ALU and STO row kernels write in
+    place are copied once (contiguous), so a wave never writes a caller's
+    tensors or the numpy arrays they may share. ``gmem`` is never written
+    in place and passes through."""
+    def own(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return own(state.regs), own(state.shmem), state.gmem, own(state.oob)
+
+
 def _static_counters(state, trace: ProgramTrace, by_class: np.ndarray):
     """The wave's counters from the static trace (the lockstep wave rule
     charges each member for the whole wave's port drain,
@@ -169,12 +181,13 @@ def run_wave_trace(cfg: SMConfig, backend: ExecBackend,
                    sched: TraceSchedule, block_idx, prog_idx, state):
     """Run one homogeneous wave on the trace engine: every data row of the
     schedule through the shared execute stage, on the device the state
-    lives on. Counters come from the static trace, identical to the step
+    lives on, over the wave's own copy of the data state (``state`` is not
+    written). Counters come from the static trace, identical to the step
     engine's own count."""
     device = state.regs.device
     bidx = _wave_index(block_idx, device)
     pidx = _wave_index(prog_idx, device)
-    s = (state.regs, state.shmem, state.gmem, state.oob)
+    s = owned_data(state)
     for row in sched.rows:
         s = make_data_handlers(cfg, backend, row, bidx, pidx)[row.sel](s)
     regs, shmem, gmem, oob = s

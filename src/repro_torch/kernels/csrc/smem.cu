@@ -8,25 +8,37 @@
 // lanes write nothing and their addresses are never dereferenced).
 //
 // Layout: gather is one thread per lane of the flattened (n_sm, k) batch.
-// scatter is one CTA per simulated SM with one thread per lane: the CTA
-// copies the SM's image to the output and clears a winner array in dynamic
-// shared memory (4 B per word, 12 KiB at the paper's 3072 words), each
-// enabled lane claims its address with atomicMax of its thread index, and
-// after a barrier the lane holding the claim stores. This is the
-// write-port rule the segment kernel applies inside a fused run.
+// scatter is one CTA per simulated SM with one thread per lane, and one
+// body behind two entry points:
+//   * egpu_sto_row: one STO data row over a wave of SMs, in place. Each
+//     thread forms its gate (active shape, predicate) and, where enabled,
+//     its address wrap32(regs[src][ra] + imm) (src snooped as the ALU
+//     row's); an enabled lane outside [0, bound) stores nothing and sets
+//     its SM's oob flag in place. The stored word is regs[t][rd].
+//   * egpu_scatter: the tile form over pre-computed (n_sm, k) addresses,
+//     values and enables, into an image the wrapper has copied.
+// Each enabled lane clears, then (after a barrier) claims its address
+// with atomicMax of its thread index in a winner array in dynamic shared
+// memory (4 B per word: 12 KiB at the paper's 3072 words), and after a
+// second barrier the lane holding the claim stores into the image in
+// device memory. Only claimed words of the winner array are touched, and
+// the image is never copied. This is the write-port rule the segment
+// kernel applies inside a fused run.
 //
-// Bound: bytes. A gather moves 13 B per lane plus one image word; a
-// scatter reads and writes the image once (8 B per word) and reads 9 B
-// per lane. At the step path's 4 x 512 lanes and 3072 words that is
-// 34 KB and 135 KB: tens of nanoseconds at 3.35 TB/s, so both calls are
-// launch-latency bound. The scatter's claims stay in shared memory, so
-// it costs one launch where a device-wide winner array would cost two.
+// Bound: bytes. An STO row reads two or three register words per thread
+// and writes at most one image word per thread: 4 x 512 threads move
+// about 33 KB, 10 ns at 3.35 TB/s, so a row costs one launch. A gather
+// moves 13 B per lane plus one image word.
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
+
+#include "egpu_row.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kStaticSmem = 48 * 1024;   // dynamic shared memory without opt-in
 
 __global__ void gather_kernel(const uint32_t* __restrict__ mem, int depth,
                               const int32_t* __restrict__ addr,
@@ -39,25 +51,93 @@ __global__ void gather_kernel(const uint32_t* __restrict__ mem, int depth,
   out[i] = mask[i] ? mem[sm * depth + addr[i]] : old[i];
 }
 
-__global__ void scatter_kernel(const uint32_t* __restrict__ mem, int depth,
-                               const int32_t* __restrict__ addr,
-                               const uint32_t* __restrict__ vals,
-                               const uint8_t* __restrict__ do_,
-                               uint32_t* __restrict__ out, int k) {
+// The shared body: the policy loads thread t's enable, address and word;
+// the write port resolves collisions in shared memory and stores in place.
+template <class Io>
+__global__ void scatter_kernel(Io io) {
   extern __shared__ int winner[];
   const int t = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * depth;
-  for (int i = t; i < depth; i += blockDim.x) {
-    winner[i] = -1;
-    out[base + i] = mem[base + i];
+  bool en;
+  int a;
+  uint32_t v;
+  io.load(en, a, v);
+  if (en) winner[a] = -1;
+  __syncthreads();
+  if (en) atomicMax(&winner[a], t);
+  __syncthreads();
+  if (en && winner[a] == t) io.image()[a] = v;
+}
+
+// (n_sm, k) tiles: addresses within [0, depth) where enabled.
+struct TileIo {
+  const int32_t* addr;
+  const uint32_t* vals;
+  const uint8_t* do_;
+  uint32_t* mem;
+  int depth, k;
+
+  __device__ void load(bool& en, int& a, uint32_t& v) const {
+    const size_t lane = static_cast<size_t>(blockIdx.x) * k + threadIdx.x;
+    en = do_[lane] != 0;
+    a = en ? addr[lane] : 0;
+    v = vals[lane];
   }
-  __syncthreads();
-  const size_t lane = static_cast<size_t>(blockIdx.x) * k + t;
-  const bool enabled = do_[lane] != 0;
-  const int a = enabled ? addr[lane] : 0;
-  if (enabled) atomicMax(&winner[a], t);
-  __syncthreads();
-  if (enabled && winner[a] == t) out[base + a] = vals[lane];
+  __device__ uint32_t* image() const {
+    return mem + static_cast<size_t>(blockIdx.x) * depth;
+  }
+};
+
+// One STO row, 512 threads per SM.
+struct RowIo {
+  egpu::Row f;
+  const uint32_t* regs;
+  uint32_t* shmem;
+  uint8_t* oob;
+  int depth, bound, n_threads;
+
+  __device__ void load(bool& en, int& a, uint32_t& v) const {
+    const uint32_t* r =
+        regs + static_cast<size_t>(blockIdx.x) * egpu::kRowThreads * egpu::kRegs;
+    const int t = threadIdx.x;
+    en = egpu::row_enabled(f, r, t, n_threads);
+    a = 0;
+    if (en) {
+      // the low 32 bits of the sign-extended word plus imm (ref.wrap32)
+      a = static_cast<int>(r[egpu::row_source(f, f.ext_a, t) * egpu::kRegs + f.ra]
+                           + static_cast<uint32_t>(f.imm));
+      if (a < 0 || a >= bound) {
+        oob[blockIdx.x] = 1;
+        en = false;
+      }
+    }
+    v = r[t * egpu::kRegs + f.rd];
+  }
+  __device__ uint32_t* image() const {
+    return shmem + static_cast<size_t>(blockIdx.x) * depth;
+  }
+};
+
+// Launch one scatter; a winner array above 48 KB needs the kernel's
+// dynamic shared-memory limit raised, once per size (per process: the
+// port drives one card).
+template <class Io>
+cudaError_t launch_scatter(const Io& io, int n_sm, int threads, int words,
+                           cudaStream_t stream) {
+  static std::mutex mu;
+  static int allowed = kStaticSmem;
+  const int smem = static_cast<int>(sizeof(int)) * words;
+  if (smem > kStaticSmem) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (smem > allowed) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          scatter_kernel<Io>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return err;
+      allowed = smem;
+    }
+  }
+  scatter_kernel<Io><<<n_sm, threads, smem, stream>>>(io);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -74,19 +154,32 @@ extern "C" int egpu_gather(const int32_t* mem, int depth, const int32_t* addr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out receives the n_sm new images; k lanes per SM, k <= 1024.
-extern "C" int egpu_scatter(const int32_t* mem, int depth, const int32_t* addr,
-                            const int32_t* vals, const uint8_t* do_,
-                            int32_t* out, int n_sm, int k, void* stream) {
+// mem holds the n_sm images and is written in place; k lanes per SM,
+// k <= 1024.
+extern "C" int egpu_scatter(int32_t* mem, int depth, const int32_t* addr,
+                            const int32_t* vals, const uint8_t* do_, int n_sm,
+                            int k, void* stream) {
   if (n_sm == 0) return 0;
-  const size_t smem = sizeof(int) * static_cast<size_t>(depth);
-  cudaError_t err = cudaFuncSetAttribute(
-      scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<n_sm, k, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint32_t*>(mem), depth, addr,
-      reinterpret_cast<const uint32_t*>(vals), do_,
-      reinterpret_cast<uint32_t*>(out), k);
-  return static_cast<int>(cudaGetLastError());
+  const TileIo io{addr, reinterpret_cast<const uint32_t*>(vals), do_,
+                  reinterpret_cast<uint32_t*>(mem), depth, k};
+  return static_cast<int>(launch_scatter(io, n_sm, k, depth,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The row's 15 fields in FIELDS order, then the wave: regs (n_sms, 512,
+// 16), shmem (n_sms, depth) and oob (n_sms,) bytes; shmem and oob are
+// written in place. Addresses are bounded by bound <= depth.
+extern "C" int egpu_sto_row(int sel, int opcode, int typ, int rd, int ra,
+                            int rb, int imm, int x, int ext_a, int ext_b,
+                            int pen, int preg, int pneg, int act_waves,
+                            int act_wthreads, int n_threads,
+                            const int32_t* regs, int32_t* shmem, uint8_t* oob,
+                            int n_sms, int depth, int bound, void* stream) {
+  const RowIo io{{sel, opcode, typ, rd, ra, rb, imm, x, ext_a, ext_b, pen,
+                  preg, pneg, act_waves, act_wthreads},
+                 reinterpret_cast<const uint32_t*>(regs),
+                 reinterpret_cast<uint32_t*>(shmem), oob, depth, bound,
+                 n_threads};
+  return static_cast<int>(launch_scatter(io, n_sms, egpu::kRowThreads, bound,
+                                         static_cast<cudaStream_t>(stream)));
 }

@@ -2,9 +2,14 @@
 
   * ``simt_gather``         — LOD on the step path: each SM's lanes gather
     from that SM's own shared-memory image (CUDA: ``csrc/smem.cu``);
-  * ``simt_scatter``        — STO on the step path: the single write port,
-    the highest enabled thread wins on an address collision (CUDA:
-    ``csrc/smem.cu``);
+  * ``simt_sto_row``        — one STO data row of the step and trace
+    engines: the single write port, the highest enabled thread wins on an
+    address collision; the address, gate and stored word are read from
+    the register file on the card, and the image and the oob flags are
+    written in place, one launch per row (CUDA: ``csrc/smem.cu``; plain:
+    ``sto_row_plain``, out of place);
+  * ``simt_scatter``        — the same write port over pre-computed
+    addresses, values and enables (tile form, on the same kernel body);
   * ``simt_segment``        — a fused run of SM-local rows over an SM
     batch, registers and shared memory resident on chip for the whole run
     (CUDA: ``csrc/segment.cu``; plain: ``core.executor.apply_segment_rows``);
@@ -23,8 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, ref
 from .build import MAX_DYNAMIC_SMEM, check_tensor, current_stream
+from .simt_alu import check_regs
 
 N_FIELDS = 15
 
@@ -103,6 +109,23 @@ def scatter_plain(mem, addr, vals, do):
     return _last_writer_write(mem, addr, vals, do)
 
 
+def sto_row_plain(cfg, row, regs, shmem, oob, depth: int):
+    """One STO row (``row`` a ``core.executor.FusedRow``) over ``regs``
+    (n, 512, 16), ``shmem`` (n, width) int32 and ``oob`` (n,) bool:
+    enabled threads store ``regs[s, t, rd]`` at ``wrap32(operand + imm)``;
+    one outside ``[0, depth)`` stores nothing and sets its SM's ``oob``.
+    Nothing is modified; returns the new ``(shmem, oob)``."""
+    from ..core.executor import row_eff, row_operand
+
+    d = row.d
+    m = row_eff(cfg.n_threads, row, regs)
+    addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                      .to(torch.int64) + d["imm"])
+    bad = m & ((addr < 0) | (addr >= depth))
+    return (scatter_plain(shmem, addr, regs[:, :, d["rd"]].contiguous(),
+                          m & ~bad), oob | bad.any(dim=1))
+
+
 def scatter_smem_bytes(depth: int) -> int:
     """Dynamic shared memory of one scatter CTA: the winner array."""
     return 4 * depth
@@ -135,6 +158,26 @@ def check_scatter_args(mem, addr, vals, do) -> None:
                          f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
 
 
+def check_sto_row_args(cfg, row, regs, shmem, oob, depth: int) -> tuple:
+    """Raise unless the STO row kernel takes these arguments as they are;
+    returns the row's fields in ``FIELDS`` order."""
+    fields = row.fields
+    if row.sel != 3:
+        raise ValueError(f"row sel={row.sel} is not an STO row")
+    check_regs(regs)
+    n, width = shmem.shape
+    check_tensor(shmem, "shmem", torch.int32, (regs.shape[0], width),
+                 regs.device)
+    check_tensor(oob, "oob", torch.bool, (n,), regs.device)
+    if not 1 <= depth <= width:
+        raise ValueError(f"shmem_depth={depth} outside [1, {width}]")
+    if scatter_smem_bytes(depth) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"a {depth}-word shared memory needs "
+                         f"{scatter_smem_bytes(depth)} bytes of shared "
+                         f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
+    return fields
+
+
 def simt_gather(mem, addr, mask, old):
     """LOD gather. ``mem`` (n, depth) int32; ``addr`` (n, k) int32 within
     ``[0, depth)``; ``mask`` (n, k) bool; ``old`` (n, k) int32. Returns the
@@ -155,19 +198,38 @@ def simt_gather(mem, addr, mask, old):
 def simt_scatter(mem, addr, vals, do):
     """STO scatter. ``mem`` (n, depth) int32; ``addr``/``vals`` (n, k)
     int32, ``addr`` within ``[0, depth)`` where ``do``; ``do`` (n, k) bool.
-    Returns the new shared-memory images; ``mem`` is not modified."""
+    Returns the new shared-memory images (a copy of ``mem`` that the
+    kernel stores into); ``mem`` is not modified."""
     if not mem.is_cuda:
         return scatter_plain(mem, addr, vals, do)
     check_scatter_args(mem, addr, vals, do)
     n, depth = mem.shape
-    k = vals.shape[1]
-    out = torch.empty_like(mem)
-    fn = build.entry_point("egpu_scatter")
-    build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), vals.data_ptr(),
-                   do.data_ptr(), out.data_ptr(), n, k,
-                   current_stream()), "scatter")
-    build.launches["scatter"] += 1
+    out = mem.clone()
+    if n:
+        fn = build.entry_point("egpu_scatter")
+        build.check(fn(out.data_ptr(), depth, addr.data_ptr(),
+                       vals.data_ptr(), do.data_ptr(), n, vals.shape[1],
+                       current_stream()), "scatter")
+        build.launches["scatter"] += 1
     return out
+
+
+def simt_sto_row(cfg, row, regs, shmem, oob, depth: int):
+    """One STO row over a wave: ``regs`` (n, 512, 16) int32, ``shmem``
+    (n, width) int32, ``oob`` (n,) bool, addresses bounded by ``depth``
+    (<= width). On the card ``shmem`` and ``oob`` are written in place
+    (one launch) and returned as ``(shmem, oob)``."""
+    if not regs.is_cuda:
+        return sto_row_plain(cfg, row, regs, shmem, oob, depth)
+    fields = check_sto_row_args(cfg, row, regs, shmem, oob, depth)
+    n, width = shmem.shape
+    if n:
+        fn = build.entry_point("egpu_sto_row")
+        build.check(fn(*fields, cfg.n_threads, regs.data_ptr(),
+                       shmem.data_ptr(), oob.data_ptr(), n, width,
+                       int(depth), current_stream()), "scatter")
+        build.launches["scatter"] += 1
+    return shmem, oob
 
 
 # ---------------------------------------------------------------------------

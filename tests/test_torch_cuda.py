@@ -5,24 +5,28 @@ JAX package, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SMConfig
-from repro_torch.core.executor import apply_segment_rows
+from repro_torch.core import SMConfig, assemble, run
+from repro_torch.core.executor import FIELDS, FusedRow, apply_segment_rows
+from repro_torch.core.machine import init_state
 from repro_torch.kernels import build, fuzz, ops
 from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
-from repro_torch.kernels.simt_alu import alu_plain, simt_alu
+from repro_torch.kernels.simt_alu import (alu_plain, alu_row_plain,
+                                          simt_alu, simt_alu_row)
 from repro_torch.kernels.wavefront_dot import (wavefront_dot,
                                                wavefront_dot_plain)
 from repro_torch.kernels.simt_step import (
     gather_plain, gather_shared_plain, scatter_plain, scatter_shared_plain,
     simt_gather, simt_gather_shared, simt_scatter, simt_scatter_shared,
-    simt_segment)
+    simt_segment, simt_sto_row, sto_row_plain)
 
 
 @pytest.fixture
@@ -116,6 +120,110 @@ def test_smem_kernels_match_plain_versions(dev, depth, span):
     wild = torch.where(mask, addr, torch.full_like(addr, -(1 << 30)))
     assert torch.equal(simt_scatter(mem, wild, vals, mask),
                        scatter_plain(mem, wild, vals, mask))
+
+
+# ---------------------------------------------------------------------------
+# the row kernels: one ALU or STO row in place
+# ---------------------------------------------------------------------------
+
+def _field_row(**f):
+    base = dict(sel=1, opcode=1, typ=0, rd=0, ra=0, rb=0, imm=0, x=0,
+                ext_a=0, ext_b=0, pen=0, preg=0, pneg=0, act_waves=32,
+                act_wthreads=16)
+    base.update(f)
+    return FusedRow.from_fields([base[k] for k in FIELDS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_threads,width,bound", [(512, 3072, None),
+                                                   (96, 64, 40),
+                                                   (200, 1024, 1000)])
+def test_row_kernels_match_plain_versions(dev, n_threads, width, bound):
+    rng = np.random.default_rng(n_threads + width)
+    cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
+    depth = bound or width
+    for sel in (1, 3):
+        for fields in fuzz.random_rows(rng, 120, sels=(sel,),
+                                       n_threads=n_threads):
+            row = FusedRow.from_fields(fields)
+            regs, shmem = fuzz.random_state(rng, 4, width)
+            if rng.random() < 0.5:            # snooped, rd its own source
+                row = dataclasses.replace(row, d={
+                    **row.d, "x": 1, "ra": row.d["rd"],
+                    "ext_a": int(rng.integers(0, 32))})
+            regs, shmem = _words(regs, dev), _words(shmem, dev)
+            oob = torch.tensor([False, True, False, False], device=dev)
+            if sel == 1:
+                want = alu_row_plain(cfg, row, regs)
+                got = simt_alu_row(cfg, row, regs.clone())
+                assert torch.equal(got, want), row
+            else:
+                want = sto_row_plain(cfg, row, regs, shmem, oob, depth)
+                got = simt_sto_row(cfg, row, regs, shmem.clone(),
+                                   oob.clone(), depth)
+                assert torch.equal(got[0], want[0]), row
+                assert torch.equal(got[1], want[1]), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,typ", [(1, 0), (3, 2), (8, 1)])
+def test_snooped_alu_row_reads_before_it_writes(dev, op, typ):
+    # rd = ra = rb = preg, every operand snooped from other threads' rd:
+    # every thread must read the row's old state
+    rng = np.random.default_rng(op)
+    regs = _words(fuzz.random_state(rng, 4, 64)[0], dev)
+    row = _field_row(opcode=op, typ=typ, rd=7, ra=7, rb=7, x=1, ext_a=31,
+                     ext_b=5, pen=1, preg=7)
+    want = alu_row_plain(SMConfig(), row, regs)
+    got = regs.clone()
+    assert simt_alu_row(SMConfig(), row, got) is got      # in place
+    assert torch.equal(got, want)
+    assert not torch.equal(got, regs)
+
+
+@pytest.mark.cuda
+def test_sto_row_out_of_bound_sets_oob_and_leaves_the_image(dev):
+    # thread t stores t + 7 at regs[s, t, 1] (+ imm 0): SM 0 all at 0,
+    # SM 1 at 38 + t (past the bound of 40 from thread 2), SM 2 below 0,
+    # SM 3 far above the 64-word image
+    tid = torch.arange(512, device=dev, dtype=torch.int32)
+    regs = torch.zeros((4, 512, 16), dtype=torch.int32, device=dev)
+    regs[:, :, 2] = tid + 7
+    regs[1, :, 1] = tid + 38
+    regs[2, :, 1] = -600
+    regs[3, :, 1] = 1 << 30
+    shmem = torch.arange(4 * 64, dtype=torch.int32, device=dev).view(4, 64)
+    oob = torch.zeros(4, dtype=torch.bool, device=dev)
+    row = _field_row(sel=3, opcode=11, rd=2, ra=1)
+    want = sto_row_plain(SMConfig(), row, regs, shmem, oob, 40)
+    img, flags = shmem.clone(), oob.clone()
+    got = simt_sto_row(SMConfig(), row, regs, img, flags, 40)
+    assert got[0] is img and got[1] is flags        # in place
+    assert torch.equal(img, want[0]) and torch.equal(flags, want[1])
+    assert flags.tolist() == [False, True, True, True]
+    # in bound: SM 0 (all at address 0, highest thread wins), SM 1 at 38
+    # and 39; nothing at or past the bound of 40, nothing on SMs 2 and 3
+    assert img[0, 0] == 511 + 7 and torch.equal(img[0, 1:], shmem[0, 1:])
+    assert img[1, 38:40].tolist() == [7, 8]
+    assert torch.equal(img[1, 40:], shmem[1, 40:])
+    assert torch.equal(img[2:], shmem[2:])
+
+
+@pytest.mark.cuda
+def test_runs_on_the_card_leave_the_callers_state_unchanged(dev):
+    cfg = SMConfig(n_threads=64, dim_x=64, shmem_depth=128)
+    words = assemble("TDX R1\nADD.INT32 R2, R1, R1\nNOP\nNOP\n"
+                     "STO R2, (R1)+0\nSTOP").words
+    prev = init_state(cfg, device=dev)
+    before = prev.regs.clone(), prev.shmem.clone()
+    build.reset_launches()
+    fin = run(cfg, words, state=prev)
+    assert build.launches["alu"] == 1 and build.launches["scatter"] == 1
+    assert torch.equal(prev.regs, before[0])
+    assert torch.equal(prev.shmem, before[1])
+    want = run(cfg, words, state=init_state(cfg), backend="cpu")
+    assert torch.equal(fin.regs.cpu(), want.regs)
+    assert torch.equal(fin.shmem.cpu(), want.shmem)
 
 
 # ---------------------------------------------------------------------------

@@ -355,9 +355,10 @@ def test_fuel_limited_program_matches_reference():
 
 
 def test_engines_hand_the_kernels_what_they_take():
-    # a host backend that checks every per-op call as the CUDA wrappers
-    # do (dtype, shape, device, contiguity) before its plain version: the
-    # step and trace engines must pass all five kernels' checks
+    # a host backend that checks every seam call as the CUDA wrappers do
+    # (dtype, shape, device, contiguity, row fields) before its plain
+    # version: the step and trace engines must pass all five kernels'
+    # checks
     from repro_torch.core.executor import (ExecBackend, _EXECUTE_BACKENDS,
                                            get_execute_backend,
                                            register_backend)
@@ -376,9 +377,9 @@ def test_engines_hand_the_kernels_what_they_take():
 
     register_backend(ExecBackend(
         name="checked", device="cpu",
-        alu=checked("alu", k_alu.check_alu_args, cpu.alu),
+        alu_row=checked("alu_row", k_alu.check_alu_row_args, cpu.alu_row),
         lod=checked("lod", k_step.check_gather_args, cpu.lod),
-        sto=checked("sto", k_step.check_scatter_args, cpu.sto),
+        sto_row=checked("sto_row", k_step.check_sto_row_args, cpu.sto_row),
         gld=checked("gld", k_step.check_gather_shared_args, cpu.gld),
         gst=checked("gst", k_step.check_scatter_shared_args, cpu.gst)))
     try:
@@ -397,4 +398,4 @@ def test_engines_hand_the_kernels_what_they_take():
         launch(dev, programs=[Kernel(a, block=16)], grid_map=[0, 0])
     finally:
         del _EXECUTE_BACKENDS["checked"]
-    assert seen == {"alu", "lod", "sto", "gld", "gst"}
+    assert seen == {"alu_row", "lod", "sto_row", "gld", "gst"}
