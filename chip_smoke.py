@@ -15,8 +15,11 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      out-of-range lanes, snooped operands, guarded rows, NaN/infinite/
      denormal FP32 words, FP32 MUL and DOT products around 2**-126,
      INVSQR, every ALU op and type, shared-memory depths 64, 1024 and
-     3072; the ALU and STO row kernels over fuzzed rows, half of them
-     snooped with the destination as their own source; the kernel
+     3072; the segment kernel also over hazard-dense rows, in which one
+     thread reads what another writes, and over the FFT-64, QRD-16 and
+     SAXPY plans with the barriers each plan placed; the ALU, LOD and STO
+     row kernels over fuzzed rows, half of them snooped with the
+     destination as their own source; the kernel
      layer's dot over fuzzed words, FFT at N = 2...16384 in both orders,
      QRD at n = 5...32 with non-finite input), and the flash kernel
      within 2e-5 in float32 and one bf16 ulp in bfloat16 at D = 1...128
@@ -43,12 +46,13 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      Each launch of the first three paths is repeated with the host's
      plain versions and must give equal state, counters and profile; the
      numerics are checked against numpy; every kernel of a path must
-     have launched in it, and on the step and trace paths ``alu`` and
-     ``scatter`` exactly once per ALU and STO row the host executed. One
-     ALU and one STO row of each of those engines must issue one launch
-     and no PyTorch operation (a TorchDispatchMode count, with the
-     profiler's count of CUDA kernels, beside the per-op composition of
-     the same rows that the row seam replaced);
+     have launched in it, and on the step and trace paths ``alu``,
+     ``gather`` and ``scatter`` exactly once per ALU, LOD and STO row the
+     host executed. One ALU, one LOD and one STO row of each of those
+     engines must issue one launch and no PyTorch operation (a
+     TorchDispatchMode count, with the profiler's count of CUDA kernels,
+     beside the per-op composition of the same rows that the row seam
+     replaced);
   4. reproduces the [4sm] golden entries the port reaches from
      tests/golden_cycles.json;
   5. times each kernel at its path's shapes with CUDA events beside its
@@ -57,10 +61,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      the kernel and that call are timed once more on the card alone
      (``device_ms``: queued behind a sleep kernel, so the host's cost
      per launch is hidden); more rows time ``fft`` at FFT-4096 x 1024
-     (a CTA per row), ``flash`` in bfloat16, the tile forms of ``alu``
-     and ``scatter``, and a whole ALU and STO handler call beside the
-     per-op composition of the same row, in turns;
-  6. prints the ``kernels`` JSON line, the device line and, last, the
+     (a CTA per row), ``flash`` in bfloat16, the tile forms of ``alu``,
+     ``gather`` and ``scatter``, ``segment`` on one FFT-64 wave, and a
+     whole ALU, LOD and STO handler call beside the per-op composition of
+     the same row, in turns;
+  6. prints the barriers the FFT-64 and QRD-16 plans place in their
+     segments, the ``kernels`` JSON line, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failure raises, so the script exits non-zero and prints no result.
@@ -232,7 +238,7 @@ def check_segment(rng, dev) -> int:
     from repro_torch.core import SMConfig
     from repro_torch.core.executor import apply_segment_rows
     from repro_torch.kernels import fuzz
-    from repro_torch.kernels.simt_step import simt_segment
+    from repro_torch.kernels.simt_step import segment_barriers, simt_segment
 
     worst = 0
     cases = [(SMConfig(), 4, 3072, None, 600),
@@ -269,7 +275,87 @@ def check_segment(rng, dev) -> int:
     if got[0][0, :4, 3].tolist() != [0, -2**31, -2**31, 0]:
         raise AssertionError(f"segment MUL.FP32 0x3F7FFFFF x 0x00800000: "
                              f"{got[0][0, :4, 3].tolist()}")
+    # hazard-dense rows (snooped rd == ra, LOD right after STO, INVSQR
+    # right after a write to its source, DOT over snooped operands) with
+    # the bits segment_barriers places, the first in two chunks
+    for cfg, n, depth, bound, n_rows in (
+            (SMConfig(), 4, 3072, None, 700),
+            (SMConfig(n_threads=96, dim_x=8), 2, 64, 40, 400)):
+        rows = fuzz.random_rows(rng, n_rows, n_threads=cfg.n_threads,
+                                hazards=True)
+        bits = torch.from_numpy(segment_barriers(rows)).to(dev)
+        worst = max(worst, hold_segment(
+            rng, dev, "hazards", cfg, rows, torch.from_numpy(rows).to(dev),
+            bits, n, depth, bound))
+    # every fused item of the FFT-64, QRD-16 and SAXPY plans, with the
+    # plan's own bits
+    for name, plan in path_plans().items():
+        table = plan.device_table(dev)
+        bits = plan.device_barriers(dev)
+        for start, stop in (p for k, p in plan.items if k == "fused"):
+            worst = max(worst, hold_segment(
+                rng, dev, name, plan.cfg, plan.sched.table[start:stop],
+                table[start:stop], bits[start:stop], 4, 3072, None))
     return worst
+
+
+def hold_segment(rng, dev, what, cfg, rows_np, rows, bits, n, depth,
+                 bound) -> int:
+    """The segment kernel with ``bits`` against its plain version on a
+    random ``n``-SM wave; returns the largest word difference (0)."""
+    import torch
+    from repro_torch.core.executor import apply_segment_rows
+    from repro_torch.kernels import fuzz
+    from repro_torch.kernels.simt_step import simt_segment
+
+    regs, shmem = (torch.from_numpy(a.view(np.int32)).to(dev)
+                   for a in fuzz.random_state(rng, n, depth))
+    oob = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+    bidx = torch.from_numpy(rng.integers(0, 99, n).astype(np.int32)).to(dev)
+    pidx = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)).to(dev)
+    got = simt_segment(cfg, rows, bidx, pidx, regs, shmem, oob,
+                       shmem_depth=bound, barriers=bits)
+    want = apply_segment_rows(cfg, rows_np, bidx, pidx, regs, shmem, oob,
+                              shmem_depth=bound)
+    return max(words_equal(f"segment {what} {name}", g, w)
+               for name, g, w in zip(("regs", "shmem", "oob"), got, want))
+
+
+def path_plans() -> dict:
+    """The megakernel plans of the main path's three programs."""
+    from repro_torch.core import SMConfig, compile_megakernel
+    from repro_torch.core.programs import qrd_program
+    from repro_torch.core.programs.fft import fft_program
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+
+    return {"fft64": compile_megakernel(fft_program(64), SMConfig(
+                max_steps=200_000)),
+            "qrd16": compile_megakernel(qrd_program(), SMConfig(
+                imem_depth=1024, max_steps=200_000)),
+            "saxpy4096": compile_megakernel(saxpy_grid_program(4096, 512),
+                                            SMConfig(max_steps=10_000))}
+
+
+def barrier_counts() -> dict:
+    """Barriers per wave that the FFT-64 and QRD-16 plans place in their
+    one segment (before a read phase, before a write phase), beside the
+    two per row of a kernel that places them on every row."""
+    from repro_torch.kernels.simt_step import (BARRIER_BEFORE_READ,
+                                               BARRIER_BEFORE_WRITE)
+
+    out = {}
+    for name, plan in path_plans().items():
+        if name == "saxpy4096":
+            continue
+        bits = plan.barriers
+        out[name] = dict(
+            rows=int(bits.shape[0]),
+            before_read=int((bits & BARRIER_BEFORE_READ != 0).sum()),
+            before_write=int((bits & BARRIER_BEFORE_WRITE != 0).sum()),
+            every_row=2 * int(bits.shape[0]))
+        out[name]["total"] = (out[name]["before_read"]
+                              + out[name]["before_write"])
+    return out
 
 
 def check_gmem(rng, dev) -> tuple[int, int]:
@@ -351,8 +437,9 @@ def check_per_op(rng, dev) -> dict[str, int]:
 
 
 def check_rows(rng, dev) -> dict[str, int]:
-    """The ALU and STO row kernels against their plain row versions on the
-    same card state: fuzzed rows (every ALU op and type, guarded words,
+    """The ALU, LOD and STO row kernels against their plain row versions
+    on the same card state: fuzzed rows (every ALU op and type, guarded
+    words,
     partial shapes, addresses in and out of the bound), half of them
     snooped with the destination as their own source, at the step path's
     shape (512 threads, 3072 words) and at a partial block (96 threads,
@@ -362,14 +449,15 @@ def check_rows(rng, dev) -> dict[str, int]:
     from repro_torch.core.executor import FusedRow
     from repro_torch.kernels import fuzz
     from repro_torch.kernels.simt_alu import alu_row_plain, simt_alu_row
-    from repro_torch.kernels.simt_step import simt_sto_row, sto_row_plain
+    from repro_torch.kernels.simt_step import (lod_row_plain, simt_lod_row,
+                                               simt_sto_row, sto_row_plain)
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
-    worst = {"alu": 0, "scatter": 0}
+    worst = {"alu": 0, "gather": 0, "scatter": 0}
     for n_threads, width, bound in ((512, 3072, None), (96, 64, 40)):
         cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
         depth = bound or width
-        for sel, name in ((1, "alu"), (3, "scatter")):
+        for sel, name in ((1, "alu"), (2, "gather"), (3, "scatter")):
             for fields in fuzz.random_rows(rng, 150, sels=(sel,),
                                            n_threads=n_threads):
                 if rng.random() < 0.5:       # x = 1, ra = rd, an ext_a
@@ -384,12 +472,19 @@ def check_rows(rng, dev) -> dict[str, int]:
                         simt_alu_row(cfg, row, regs.clone()),
                         alu_row_plain(cfg, row, regs)))
                     continue
-                got = simt_sto_row(cfg, row, regs, shmem.clone(),
-                                   oob.clone(), depth)
-                want = sto_row_plain(cfg, row, regs, shmem, oob, depth)
-                for what, g, w in zip(("shmem", "oob"), got, want):
+                if sel == 2:
+                    got = simt_lod_row(cfg, row, regs.clone(), shmem,
+                                       oob.clone(), depth)
+                    want = lod_row_plain(cfg, row, regs, shmem, oob, depth)
+                    parts = ("regs", "oob")
+                else:
+                    got = simt_sto_row(cfg, row, regs, shmem.clone(),
+                                       oob.clone(), depth)
+                    want = sto_row_plain(cfg, row, regs, shmem, oob, depth)
+                    parts = ("shmem", "oob")
+                for what, g, w in zip(parts, got, want):
                     worst[name] = max(worst[name], words_equal(
-                        f"sto row {what} {fields.tolist()}", g, w))
+                        f"{name} row {what} {fields.tolist()}", g, w))
     return worst
 
 
@@ -661,10 +756,10 @@ def step_path(rng):
 
     def both(name, fn, **kw):
         """``fn(DeviceConfig)`` on the card and on the host; the card must
-        launch ``alu`` and ``scatter`` once per ALU and STO row the host
-        executed."""
+        launch ``alu``, ``gather`` and ``scatter`` once per ALU, LOD and
+        STO row the host executed."""
         (out, res), got = on_card(lambda: fn(DeviceConfig(n_sms=4, **kw)))
-        host_rows.update(alu=0, scatter=0)
+        host_rows.update(alu=0, gather=0, scatter=0)
         out_c, res_c = fn(DeviceConfig(n_sms=4, backend=COUNTED_HOST, **kw))
         same_launch(name, res, res_c)
         assert res.halted and not bool(res.oob.any()), name
@@ -728,7 +823,8 @@ def step_path(rng):
     return check_path("step-path", per), per, keep
 
 
-# the host's plain versions, counting the ALU and STO rows they execute
+# the host's plain versions, counting the ALU, LOD and STO rows they
+# execute
 COUNTED_HOST = "cpu-counted"
 
 
@@ -741,7 +837,7 @@ def counted_host_backend() -> dict[str, int]:
                                            register_backend)
 
     cpu = get_execute_backend("cpu")
-    rows = {"alu": 0, "scatter": 0}
+    rows = {"alu": 0, "gather": 0, "scatter": 0}
 
     def counted(name, fn):
         def row(*args):
@@ -751,21 +847,22 @@ def counted_host_backend() -> dict[str, int]:
 
     register_backend(dataclasses.replace(
         cpu, name=COUNTED_HOST, alu_row=counted("alu", cpu.alu_row),
+        lod_row=counted("gather", cpu.lod_row),
         sto_row=counted("scatter", cpu.sto_row)))
     return rows
 
 
 def composed_handler(cfg, row):
-    """The per-op composition of an ALU or STO row, the handler body the
-    row seam replaced: the operand and destination columns, masks and
+    """The per-op composition of an ALU, LOD or STO row, the handler body
+    the row seam replaced: the operand and destination columns, masks and
     address arithmetic in PyTorch around the tile-form kernel, and a copy
-    of the register file for the ALU's result. The row seam's
-    yardstick."""
+    of the register file for the ALU's and the LOD's result. The row
+    seam's yardstick."""
     import torch
     from repro_torch.core.executor import row_eff, row_operand
     from repro_torch.kernels import ref
     from repro_torch.kernels.simt_alu import simt_alu
-    from repro_torch.kernels.simt_step import simt_scatter
+    from repro_torch.kernels.simt_step import simt_gather, simt_scatter
 
     d = row.d
 
@@ -780,6 +877,19 @@ def composed_handler(cfg, row):
         out[:, :, d["rd"]] = res
         return out, shmem, gmem, oob
 
+    def h_lod(s):
+        regs, shmem, gmem, oob = s
+        depth = shmem.shape[1]
+        m = row_eff(cfg.n_threads, row, regs)
+        addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                          .to(torch.int64) + d["imm"])
+        bad = m & ((addr < 0) | (addr >= depth))
+        vals = simt_gather(shmem, addr.clamp(0, depth - 1), m & ~bad,
+                           regs[:, :, d["rd"]].contiguous())
+        out = regs.clone()
+        out[:, :, d["rd"]] = vals
+        return out, shmem, gmem, oob | bad.any(dim=1)
+
     def h_sto(s):
         regs, shmem, gmem, oob = s
         depth = shmem.shape[1]
@@ -791,7 +901,7 @@ def composed_handler(cfg, row):
                              m & ~bad)
         return regs, shmem, gmem, oob | bad.any(dim=1)
 
-    return {1: h_alu, 3: h_sto}[row.sel]
+    return {1: h_alu, 2: h_lod, 3: h_sto}[row.sel]
 
 
 def issue_counts(fn) -> dict:
@@ -831,7 +941,7 @@ def issue_counts(fn) -> dict:
 
 
 def row_issue(engine: str) -> dict:
-    """The first ALU and STO rows of FFT-64 as ``engine`` ("step" or
+    """The first ALU, LOD and STO rows of FFT-64 as ``engine`` ("step" or
     "trace") dispatches them, through the execute stage on the card over a
     wave of 4 SMs x 512 threads with a 3072-word shared memory: what each
     row issues (``issue_counts``), and what the per-op composition of the
@@ -858,7 +968,7 @@ def row_issue(engine: str) -> dict:
              torch.zeros((64,), dtype=torch.int32, device=dev),
              torch.zeros((n,), dtype=torch.bool, device=dev))
     out = {}
-    for sel, name in ((1, "alu"), (3, "sto")):
+    for sel, name in ((1, "alu"), (2, "lod"), (3, "sto")):
         row = next(r for r in rows if r.sel == sel)
         h = make_data_handlers(cfg, get_execute_backend("cuda"), row, idx,
                                idx)[sel]
@@ -873,9 +983,9 @@ def row_issue(engine: str) -> dict:
 
 def trace_path(keep):
     """FFT-64 and QRD-16 on the trace engine: word for word the step
-    path's runs on the card, counters included, with one ``alu`` and one
-    ``scatter`` launch per ALU and STO row the step path's host run
-    counted."""
+    path's runs on the card, counters included, with one ``alu``,
+    ``gather`` and ``scatter`` launch per ALU, LOD and STO row the step
+    path's host run counted."""
     from repro_torch.convert import launch_result_to_numpy
     from repro_torch.core import DeviceConfig, SMConfig
     from repro_torch.core.programs import run_fft_batch, run_qrd_batch
@@ -1133,44 +1243,78 @@ def golden_shapes():
 # phase 5: timing at each path's shapes
 # ---------------------------------------------------------------------------
 
-def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
+def segment_wave(rng, dev, name: str):
+    """One wave of four SMs of the main path's ``name`` ("qrd16" or
+    "fft64") as the segment kernel takes it: the plan's one fused
+    segment, its rows and barrier bits on the card, zero registers and the
+    program's own shared-memory images of random inputs."""
     import torch
     from repro_torch.core import SMConfig, compile_megakernel
-    from repro_torch.core.executor import apply_segment_rows
-    from repro_torch.core.programs import qrd_program, qrd_shmem
-    from repro_torch.kernels.simt_step import (
-        gather_shared_plain, scatter_shared_plain, simt_gather_shared,
-        simt_scatter_shared, simt_segment)
+    from repro_torch.core.programs import fft_shmem, qrd_program, qrd_shmem
+    from repro_torch.core.programs.fft import fft_program
 
-    out = {}
-    # segment: one QRD-16 wave of four SMs, the main path's longest run
-    cfg = SMConfig(n_threads=256, dim_x=16, imem_depth=1024,
-                   max_steps=200_000)
-    plan = compile_megakernel(qrd_program(), cfg)
-    ((_, (start, stop)),) = plan.items
-    rows_np = plan.sched.table[start:stop]
-    rows = plan.device_table(dev)[start:stop]
     n = 4
-    regs = torch.zeros((n, 512, 16), dtype=torch.int32, device=dev)
-    shmem = torch.from_numpy(np.stack([
-        qrd_shmem(rng.standard_normal((16, 16)), 3072)
-        for _ in range(n)]).view(np.int32)).to(dev)
-    oob = torch.zeros(n, dtype=torch.bool, device=dev)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    zero = torch.zeros(n, dtype=torch.int32, device=dev)
-    kern = lambda: simt_segment(cfg, rows, idx, zero, regs, shmem, oob)  # noqa: E731
-    plain = lambda: apply_segment_rows(cfg, rows_np, idx, zero, regs, shmem, oob)  # noqa: E731
+    if name == "qrd16":
+        cfg = SMConfig(n_threads=256, dim_x=16, imem_depth=1024,
+                       max_steps=200_000)
+        program = qrd_program()
+        images = [qrd_shmem(rng.standard_normal((16, 16)), 3072)
+                  for _ in range(n)]
+    else:
+        cfg = SMConfig(n_threads=32, dim_x=32, max_steps=200_000)
+        program = fft_program(64)
+        images = [fft_shmem((rng.standard_normal(64)
+                             + 1j * rng.standard_normal(64)).astype(
+                                 np.complex64), 3072) for _ in range(n)]
+    plan = compile_megakernel(program, cfg)
+    ((_, (start, stop)),) = plan.items
+    state = (torch.arange(n, dtype=torch.int32, device=dev),
+             torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.zeros((n, 512, 16), dtype=torch.int32, device=dev),
+             torch.from_numpy(np.stack(images).view(np.int32)).to(dev),
+             torch.zeros(n, dtype=torch.bool, device=dev))
+    return (cfg, plan.sched.table[start:stop],
+            plan.device_table(dev)[start:stop],
+            plan.device_barriers(dev)[start:stop], state)
+
+
+def time_segment(rng, dev, name: str, iters: int) -> dict:
+    """The segment kernel on one main-path wave (``segment_wave``) with
+    the plan's barriers, beside its plain version."""
+    from repro_torch.core.executor import apply_segment_rows
+    from repro_torch.kernels.simt_step import simt_segment
+
+    cfg, rows_np, rows, bits, state = segment_wave(rng, dev, name)
+    bidx, pidx, regs, shmem, oob = state
+    n = regs.shape[0]
+    kern = lambda: simt_segment(cfg, rows, *state, barriers=bits)  # noqa: E731
+    plain = lambda: apply_segment_rows(cfg, rows_np, *state)  # noqa: E731
+    words_equal(f"segment {name} wave", kern()[0], plain()[0])
     tid = np.arange(512)
     lanes = sum(int(((tid % 16 < r[14]) & (tid // 16 < r[13])
                      & (tid < cfg.n_threads)).sum()) for r in rows_np)
+    # the state in and out, the rows and their bits, BID/PID
     seg_bytes = (2 * regs.numel() * 4 + 2 * shmem.numel() * 4 + 2 * n
-                 + rows.numel() * 4 + 2 * n * 4)
-    out["segment"] = dict(ms=cuda_time_ms(kern, iters),
-                          device_ms=cuda_device_ms(kern),
-                          plain_ms=cuda_time_ms(plain, 3),
-                          bytes=seg_bytes, ops=lanes * n,
-                          shape=f"QRD-16 wave: {n} SMs x {stop - start} rows,"
-                                f" 3072-word shared memory")
+                 + rows.numel() * 4 + bits.numel() * 4 + 2 * n * 4)
+    program = {"qrd16": "QRD-16", "fft64": "FFT-64"}[name]
+    return dict(ms=cuda_time_ms(kern, iters), device_ms=cuda_device_ms(kern),
+                plain_ms=cuda_time_ms(plain, 3), bytes=seg_bytes,
+                ops=lanes * n,
+                shape=f"{program} wave: {n} SMs x {rows.shape[0]} rows, "
+                      f"3072-word shared memory")
+
+
+def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
+    import torch
+    from repro_torch.kernels.simt_step import (
+        gather_shared_plain, scatter_shared_plain, simt_gather_shared,
+        simt_scatter_shared)
+
+    n = 4
+    # segment: one QRD-16 wave, the main path's longest run, and one
+    # FFT-64 wave
+    out = {"segment": time_segment(rng, dev, "qrd16", iters),
+           "segment_fft64": time_segment(rng, dev, "fft64", iters)}
 
     # GLD/GST: one SAXPY-4096 wave of four 512-thread blocks
     nel = 4096
@@ -1221,12 +1365,13 @@ def with_bounds(timing: dict[str, dict]) -> dict[str, dict]:
 def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     """ALU, LOD and STO at the step path's shapes: one wave of four
     512-thread SMs with 16 registers and a 3072-word shared memory.
-    ``alu`` and ``scatter`` are the row kernels the step and trace engines
-    launch (one MUL.FP32 row; one STO row at random addresses), each held
-    to its plain row version; ``alu_row`` and ``sto_row`` time a whole
-    handler call of the execute stage beside the per-op composition of
-    the same row (``composed_handler``), in turns; ``alu_tile`` and
-    ``scatter_tile`` time the tile forms at the per-op shapes."""
+    ``alu``, ``gather`` and ``scatter`` are the row kernels the step and
+    trace engines launch (one MUL.FP32 row; one LOD and one STO row at
+    random addresses); ``alu_row``, ``lod_row`` and ``sto_row`` time a
+    whole handler call of the execute stage beside the per-op composition
+    of the same row (``composed_handler``), in turns; ``alu_tile``,
+    ``gather_tile`` and ``scatter_tile`` time the tile forms at the
+    per-op shapes."""
     import torch
     from repro_torch.core import SMConfig
     from repro_torch.core.executor import (FIELDS, FusedRow,
@@ -1235,8 +1380,8 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     from repro_torch.kernels.simt_alu import (alu_plain, alu_row_plain,
                                               simt_alu, simt_alu_row)
     from repro_torch.kernels.simt_step import (
-        gather_plain, scatter_plain, simt_gather, simt_scatter,
-        simt_sto_row, sto_row_plain)
+        gather_plain, lod_row_plain, scatter_plain, simt_gather,
+        simt_lod_row, simt_scatter, simt_sto_row, sto_row_plain)
 
     n, depth, lanes = 4, 3072, 4 * 512
     cfg = SMConfig()
@@ -1259,10 +1404,14 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     oob = torch.zeros(n, dtype=torch.bool, device=dev)
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     mul = row()                                # MUL.FP32 R3, R4, R5
+    lod = row(sel=2, opcode=10, typ=0, rd=6, ra=1, rb=0)   # LOD R6, (R1)+0
     sto = row(sel=3, opcode=11, typ=0, rd=4, ra=1, rb=0)   # STO R4, (R1)+0
     state = (regs, shmem, torch.zeros(64, dtype=torch.int32, device=dev), oob)
-    # bytes: the columns a row reads once and the words it writes once
+    # bytes: the columns a row reads once and the words it reads or
+    # writes once (an LOD: the address column, the image words loaded,
+    # the destination column)
     alu_bytes, sto_bytes = lanes * (4 + 4 + 4), lanes * (4 + 4) + 4 * touched
+    lod_bytes = sto_bytes
     out = {}
     out["alu"] = dict(
         ms=cuda_time_ms(lambda: simt_alu_row(cfg, mul, regs), iters),
@@ -1270,6 +1419,19 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
         plain_ms=cuda_time_ms(lambda: alu_row_plain(cfg, mul, regs), iters),
         bytes=alu_bytes, ops=lanes,
         shape=f"ALU row MUL.FP32 in place: {n} x 512 threads")
+    words_equal("lod row", simt_lod_row(cfg, lod, regs.clone(), shmem,
+                                        oob.clone(), depth)[0],
+                lod_row_plain(cfg, lod, regs, shmem, oob, depth)[0])
+    out["gather"] = dict(
+        ms=cuda_time_ms(lambda: simt_lod_row(cfg, lod, regs, shmem, oob,
+                                             depth), iters),
+        device_ms=cuda_device_ms(lambda: simt_lod_row(cfg, lod, regs, shmem,
+                                                      oob, depth)),
+        plain_ms=cuda_time_ms(lambda: lod_row_plain(cfg, lod, regs, shmem,
+                                                    oob, depth), iters),
+        bytes=lod_bytes, ops=0,
+        shape=f"LOD row in place: {n} x 512 threads, random addresses in a "
+              f"{depth}-word image")
     out["scatter"] = dict(
         ms=cuda_time_ms(lambda: simt_sto_row(cfg, sto, regs, shmem, oob,
                                              depth), iters),
@@ -1283,6 +1445,7 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     # a whole handler call (the step and trace engines' unit) beside the
     # per-op composition of the same row, in turns
     for name, r, k, nbytes, nops in (("alu_row", mul, "alu", alu_bytes, lanes),
+                                     ("lod_row", lod, "gather", lod_bytes, 0),
                                      ("sto_row", sto, "scatter", sto_bytes,
                                       0)):
         h = make_data_handlers(cfg, get_execute_backend("cuda"), r, idx,
@@ -1310,14 +1473,14 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
         bytes=lanes * (4 + 4 + 1 + 4 + 4), ops=lanes,
         shape=f"tile MUL.FP32: {n} x 512 lanes")
     addr = t(addr_np.astype(np.int32))
-    out["gather"] = dict(
+    out["gather_tile"] = dict(
         ms=cuda_time_ms(lambda: simt_gather(shmem, addr, mask, old), iters),
         device_ms=cuda_device_ms(lambda: simt_gather(shmem, addr, mask,
                                                      old)),
         plain_ms=cuda_time_ms(lambda: gather_plain(shmem, addr, mask, old),
-                              iters),
+                              iters), library_ms=None,
         bytes=lanes * (4 + 1 + 4 + 4) + 4 * touched, ops=0,
-        shape=f"LOD: {n} x 512 lanes, random addresses in a "
+        shape=f"tile LOD: {n} x 512 lanes, random addresses in a "
               f"{depth}-word image")
     out["scatter_tile"] = dict(
         ms=cuda_time_ms(lambda: simt_scatter(shmem, addr, a, mask), iters),
@@ -1476,6 +1639,12 @@ def main() -> int:
     n_golden = phases.run("golden-cycles", golden_shapes)
     timing = phases.run("timing", lambda: with_bounds({
         **time_kernels(rng, dev), **time_kernel_layer(rng, dev)}))
+    barriers = barrier_counts()
+    for name, c in barriers.items():
+        print(f"segment barriers per {name} wave: {c['total']} "
+              f"({c['before_read']} before a read phase, "
+              f"{c['before_write']} before a write phase) over {c['rows']} "
+              f"rows; {c['every_row']} at two per row")
 
     # launches per kernel, summed over the paths (each path's counts were
     # set to 0 just before it and read just after)
@@ -1486,6 +1655,7 @@ def main() -> int:
                             if name in per_row else {})}
                   for name, (c, per) in paths.items()},
         "golden_entries": n_golden,
+        "segment_barriers": barriers,
         "flash_bf16_max_abs_err": flash_bf16_err,
         "flash_bf16_32x1024x128_max_abs_err": flash_bf16_timed_err,
         "timing_shapes": {k: v["shape"] for k, v in timing.items()},

@@ -26,8 +26,8 @@ This module holds the execute stage of every engine:
   * ``exec_segment`` — a fused run through the segment kernel;
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
     kernels) and ``"cpu"`` (tensors on the host, their plain versions),
-    each with the seam ``alu_row``/``sto_row`` (a whole row, on the card
-    one launch in place) and ``lod``/``gld``/``gst`` (one port op);
+    each with the seam ``alu_row``/``lod_row``/``sto_row`` (a whole row,
+    on the card one launch in place) and ``gld``/``gst`` (one port op);
   * ``make_data_handlers`` — the 12-way data path of one decoded
     instruction, which the step and trace engines run row by row and the
     megakernel runs for its global-port rows;
@@ -326,14 +326,14 @@ def apply_segment_rows(cfg, rows, block_idx, prog_idx, regs, shmem, oob, *,
 
 
 def exec_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
-                 oob, *, shmem_depth: int | None = None):
+                 oob, *, shmem_depth: int | None = None, barriers=None):
     """Run one fused segment through the segment kernel (the CUDA kernel
     for tensors on the card, its plain version for tensors on the host).
-    ``rows`` is the segment's row table, already on the state's device."""
-    from ..kernels.simt_step import simt_segment
-
-    return simt_segment(cfg, rows, block_idx, prog_idx, regs, shmem, oob,
-                        shmem_depth=shmem_depth)
+    ``rows`` is the segment's row table and ``barriers`` its
+    ``segment_barriers`` bits, already on the state's device."""
+    return simt_step.simt_segment(cfg, rows, block_idx, prog_idx, regs,
+                                  shmem, oob, shmem_depth=shmem_depth,
+                                  barriers=barriers)
 
 
 def _last_writer_write(mem, addr, vals, do):
@@ -361,18 +361,18 @@ def _last_writer_write(mem, addr, vals, do):
 @dataclasses.dataclass(frozen=True)
 class ExecBackend:
     """One named execute backend: the device the launch keeps its state
-    on, and the seam the step and trace engines dispatch into. ALU and STO
-    rows go whole: ``alu_row(cfg, row, regs)`` returns the new register
-    file and ``sto_row(cfg, row, regs, shmem, oob, depth)`` the new
-    ``(shmem, oob)``; either may write the tensors it is given in place,
-    so the engines hand it state they own. The other ports are per op:
-    ``lod(shmem, addr, mask, old)``, ``gld(gmem, addr, mask, old)`` and
-    ``gst(gmem, addr, vals, do)``."""
+    on, and the seam the step and trace engines dispatch into. ALU, LOD
+    and STO rows go whole: ``alu_row(cfg, row, regs)`` returns the new
+    register file, ``lod_row(cfg, row, regs, shmem, oob, depth)`` the new
+    ``(regs, oob)`` and ``sto_row(cfg, row, regs, shmem, oob, depth)`` the
+    new ``(shmem, oob)``; each may write the tensors it is given in place,
+    so the engines hand it state they own. The global ports are per op:
+    ``gld(gmem, addr, mask, old)`` and ``gst(gmem, addr, vals, do)``."""
 
     name: str
     device: str
     alu_row: Callable
-    lod: Callable
+    lod_row: Callable
     sto_row: Callable
     gld: Callable
     gst: Callable
@@ -410,15 +410,15 @@ def backend_device(name: str) -> torch.device:
     return torch.device(dev)
 
 
-# the card: the five kernels (ALU and STO rows in place); the host: their
-# plain versions (out of place)
+# the card: the five kernels (ALU, LOD and STO rows in place); the host:
+# their plain versions (out of place)
 register_backend(ExecBackend(
     name="cuda", device="cuda", alu_row=simt_alu.simt_alu_row,
-    lod=simt_step.simt_gather, sto_row=simt_step.simt_sto_row,
+    lod_row=simt_step.simt_lod_row, sto_row=simt_step.simt_sto_row,
     gld=simt_step.simt_gather_shared, gst=simt_step.simt_scatter_shared))
 register_backend(ExecBackend(
     name="cpu", device="cpu", alu_row=simt_alu.alu_row_plain,
-    lod=simt_step.gather_plain, sto_row=simt_step.sto_row_plain,
+    lod_row=simt_step.lod_row_plain, sto_row=simt_step.sto_row_plain,
     gld=simt_step.gather_shared_plain, gst=simt_step.scatter_shared_plain))
 
 
@@ -491,7 +491,7 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     tuple ``(regs, shmem, gmem, oob)`` — index it with the row's
     data-switch branch ``row.sel`` (branch 0 is the identity for
     NOP/control). ALU, LOD, STO, GLD and GST run through ``backend``'s
-    per-op seam; LODI, TDX/TDY/BID/PID, DOT/SUM, INVSQR, SETP and SELP are
+    seam; LODI, TDX/TDY/BID/PID, DOT/SUM, INVSQR, SETP and SELP are
     PyTorch operations on the state's device. Nothing here reads the card
     back to the host.
 
@@ -500,10 +500,10 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     and trace engines take. The megakernel's fused segment keeps its own
     order (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
 
-    An ALU or STO row is one call into the backend's row seam and issues
-    no PyTorch operation of its own; on the card that call is one launch
-    that writes the state in place, so the state handed to these handlers
-    must be the engine's own (``device.run_wave`` and
+    An ALU, LOD or STO row is one call into the backend's row seam and
+    issues no PyTorch operation of its own; on the card that call is one
+    launch that writes the state in place, so the state handed to these
+    handlers must be the engine's own (``device.run_wave`` and
     ``trace_engine.run_wave_trace`` copy it once per wave).
 
     ``shmem_depth`` bounds LOD/STO addressing (default: the shared-memory
@@ -549,12 +549,8 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     def h_lod(s):
         regs, shmem, gmem, oob = s
         depth = shmem_depth if shmem_depth is not None else shmem.shape[1]
-        m = eff(regs)
-        addr = addr_of(regs)
-        bad = m & ((addr < 0) | (addr >= depth))
-        vals = backend.lod(shmem, addr.clamp(0, depth - 1), m & ~bad,
-                           col(regs, rd))
-        return set_col(regs, rd, vals), shmem, gmem, oob | bad.any(dim=1)
+        regs, oob = backend.lod_row(cfg, row, regs, shmem, oob, depth)
+        return regs, shmem, gmem, oob
 
     def h_sto(s):
         regs, shmem, gmem, oob = s

@@ -18,8 +18,9 @@ The megakernel engine splits that schedule at the global-port rows
 SM-local rows between them is a fused segment that runs as ONE launch of
 the segment kernel with the wave's registers and shared memory resident
 on chip; each global-port row runs by itself through the gather/scatter
-kernels. The plan's packed row table is uploaded to a device once and
-kept with the plan.
+kernels. The plan places each segment's barriers once
+(``kernels.simt_step.segment_barriers``); its packed row table and the
+barrier bits are uploaded to a device once and kept with the plan.
 
 Cycle counters never come from execution: they are the static trace's
 (``trace.static_cycles`` / ``cycles_by_class``), which the golden-cycle
@@ -46,6 +47,7 @@ from .executor import (
 )
 from .isa import NUM_CLASSES
 from .machine import SMConfig
+from ..kernels.simt_step import segment_barriers
 
 ENGINES = ("step", "trace", "megakernel")
 
@@ -232,13 +234,16 @@ class MegakernelPlan:
 
     ``items`` is the ordered execution plan; ``sched`` keeps the
     underlying trace schedule, whose row table the fused items index, and
-    the timing model's trace. ``device_table`` uploads that table to a
-    device once and keeps it with the plan."""
+    the timing model's trace. ``barriers`` holds each fused item's
+    ``segment_barriers`` bits at its rows of that table (0 at global-port
+    rows). ``device_table`` and ``device_barriers`` upload the two to a
+    device once and keep them with the plan."""
 
     key: tuple                 # program words
     cfg: SMConfig
     sched: TraceSchedule
     items: tuple
+    barriers: np.ndarray       # (n_steps,) int32
     _tables: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
 
@@ -246,19 +251,32 @@ class MegakernelPlan:
     def halted(self) -> bool:
         return self.sched.halted
 
-    def device_table(self, device: torch.device) -> torch.Tensor:
-        key = str(device)
+    def _upload(self, name: str, host: np.ndarray, device) -> torch.Tensor:
+        key = (name, str(device))
         if key not in self._tables:
             self._tables[key] = torch.from_numpy(
-                np.ascontiguousarray(self.sched.table)).to(device)
+                np.ascontiguousarray(host)).to(device)
         return self._tables[key]
+
+    def device_table(self, device: torch.device) -> torch.Tensor:
+        return self._upload("table", self.sched.table, device)
+
+    def device_barriers(self, device: torch.device) -> torch.Tensor:
+        return self._upload("barriers", self.barriers, device)
 
 
 @functools.lru_cache(maxsize=256)
 def _megakernel_cached(words_key: tuple, cfg: SMConfig) -> MegakernelPlan:
     sched = _compile_cached(words_key, cfg)
-    return MegakernelPlan(key=words_key, cfg=cfg, sched=sched,
-                          items=_segment_items(sched.rows))
+    items = _segment_items(sched.rows)
+    table = sched.table
+    barriers = np.zeros((sched.n_steps,), np.int32)
+    for kind, payload in items:
+        if kind == "fused":
+            start, stop = payload
+            barriers[start:stop] = segment_barriers(table[start:stop])
+    return MegakernelPlan(key=words_key, cfg=cfg, sched=sched, items=items,
+                          barriers=barriers)
 
 
 def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
@@ -276,14 +294,16 @@ def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
     n = state.regs.shape[0]
     device = state.regs.device
     table = plan.device_table(device)
+    barriers = plan.device_barriers(device)
     bidx = _wave_index(block_idx, device)
     pidx = _wave_index(prog_idx, device)
     regs, shmem, gmem, oob = state.regs, state.shmem, state.gmem, state.oob
     for kind, payload in plan.items:
         if kind == "fused":
             start, stop = payload
-            regs, shmem, oob = exec_segment(plan.cfg, table[start:stop],
-                                            bidx, pidx, regs, shmem, oob)
+            regs, shmem, oob = exec_segment(
+                plan.cfg, table[start:stop], bidx, pidx, regs, shmem, oob,
+                barriers=barriers[start:stop])
         else:
             handler = make_data_handlers(plan.cfg, backend, payload, bidx,
                                          pidx)

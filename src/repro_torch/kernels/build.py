@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-HEADERS = ("egpu_fp32.cuh", "egpu_row.cuh", "hopper_ptx.cuh")
+HEADERS = ("egpu_fp32.cuh", "egpu_row.cuh", "egpu_smem.cuh",
+           "hopper_ptx.cuh")
 # a block may use at most 227 KiB of shared memory on Hopper
 MAX_DYNAMIC_SMEM = 232_448
 
@@ -38,8 +39,8 @@ _ROW = (_I,) * 16
 # C entry point -> (library, argument types); every entry point returns
 # the cudaError_t of its launch
 _ENTRY_POINTS = {
-    "egpu_segment": ("segment", (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _P)),
+    "egpu_segment": ("segment", (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _I, _P)),
     "egpu_gather_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
     "egpu_scatter_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
     "egpu_alu": ("alu", (_I, _I, _P, _P, _P, _P, _P, _I, _P)),
@@ -47,6 +48,7 @@ _ENTRY_POINTS = {
     "egpu_gather": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),
     "egpu_scatter": ("smem", (_P, _I, _P, _P, _P, _I, _I, _P)),
     "egpu_sto_row": ("smem", _ROW + (_P, _P, _P, _I, _I, _I, _P)),
+    "egpu_lod_row": ("smem", _ROW + (_P, _P, _P, _I, _I, _I, _P)),
     "egpu_wavefront_dot": ("dot", (_I, _P, _P, _P, _P, _I, _P)),
     "egpu_fft_r2": ("fft", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "egpu_mgs_qrd": ("qrd", (_P, _P, _P, _I, _I, _P)),

@@ -7,38 +7,44 @@
 // the enabled writers to one address the highest thread wins; disabled
 // lanes write nothing and their addresses are never dereferenced).
 //
-// Layout: gather is one thread per lane of the flattened (n_sm, k) batch.
-// scatter is one CTA per simulated SM with one thread per lane, and one
-// body behind two entry points:
-//   * egpu_sto_row: one STO data row over a wave of SMs, in place. Each
-//     thread forms its gate (active shape, predicate) and, where enabled,
-//     its address wrap32(regs[src][ra] + imm) (src snooped as the ALU
-//     row's); an enabled lane outside [0, bound) stores nothing and sets
-//     its SM's oob flag in place. The stored word is regs[t][rd].
-//   * egpu_scatter: the tile form over pre-computed (n_sm, k) addresses,
+// Both are row kernels: one CTA of 512 threads per simulated SM, one
+// thread per eGPU thread, one data row over a wave of SMs in one launch.
+// Each thread forms its gate (active shape, predicate) and, where
+// enabled, its address wrap32(regs[src][ra] + imm), src snooped as the
+// ALU row's; an enabled lane outside [0, bound) touches no word and sets
+// its SM's oob flag in place.
+//   * egpu_lod_row: the loaded word, or regs[t][rd] for a disabled or
+//     out-of-range lane, is written to regs[s][t][rd] in place after a
+//     barrier: with snooping the address is another thread's register,
+//     and rd may be that register or preg.
+//   * egpu_sto_row: the stored word is regs[t][rd]; shmem is written in
+//     place.
+// The tile forms keep their tests and the kernel table's timing rows:
+//   * egpu_gather: one thread per lane of the flattened (n_sm, k) batch
+//     over pre-computed addresses, enables and old words.
+//   * egpu_scatter: the write port over pre-computed (n_sm, k) addresses,
 //     values and enables, into an image the wrapper has copied.
-// Each enabled lane clears, then (after a barrier) claims its address
-// with atomicMax of its thread index in a winner array in dynamic shared
-// memory (4 B per word: 12 KiB at the paper's 3072 words), and after a
-// second barrier the lane holding the claim stores into the image in
-// device memory. Only claimed words of the winner array are touched, and
-// the image is never copied. This is the write-port rule the segment
-// kernel applies inside a fused run.
+// The write port: each enabled lane clears, then (after a barrier) claims
+// its address with atomicMax of its thread index in a winner array in
+// dynamic shared memory (4 B per word: 12 KiB at the paper's 3072 words),
+// and after a second barrier the lane holding the claim stores into the
+// image in device memory. Only claimed words of the winner array are
+// touched, and the image is never copied. This is the write-port rule the
+// segment kernel applies inside a fused run.
 //
-// Bound: bytes. An STO row reads two or three register words per thread
-// and writes at most one image word per thread: 4 x 512 threads move
-// about 33 KB, 10 ns at 3.35 TB/s, so a row costs one launch. A gather
-// moves 13 B per lane plus one image word.
+// Bound: bytes. A row reads one or two register words per thread, and an
+// LOD row loads and an STO row stores at most one image word per thread:
+// about 8 B x 2048 threads plus the image words for the step path's wave,
+// a few nanoseconds at 3.35 TB/s, so a row costs one launch.
 #include <cstdint>
-#include <mutex>
 #include <cuda_runtime.h>
 
 #include "egpu_row.cuh"
+#include "egpu_smem.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kStaticSmem = 48 * 1024;   // dynamic shared memory without opt-in
 
 __global__ void gather_kernel(const uint32_t* __restrict__ mem, int depth,
                               const int32_t* __restrict__ addr,
@@ -49,6 +55,29 @@ __global__ void gather_kernel(const uint32_t* __restrict__ mem, int depth,
   if (i >= n) return;
   const size_t sm = static_cast<size_t>(i / k);
   out[i] = mask[i] ? mem[sm * depth + addr[i]] : old[i];
+}
+
+// One LOD row, 512 threads per SM, regs and oob in place.
+__global__ void __launch_bounds__(egpu::kRowThreads)
+lod_row_kernel(egpu::Row f, uint32_t* __restrict__ regs,
+               const uint32_t* __restrict__ shmem, uint8_t* __restrict__ oob,
+               int depth, int bound, int n_threads) {
+  uint32_t* r =
+      regs + static_cast<size_t>(blockIdx.x) * egpu::kRowThreads * egpu::kRegs;
+  const int t = threadIdx.x;
+  uint32_t v = r[t * egpu::kRegs + f.rd];
+  if (egpu::row_enabled(f, r, t, n_threads)) {
+    // the low 32 bits of the sign-extended word plus imm (ref.wrap32)
+    const int a = static_cast<int>(
+        r[egpu::row_source(f, f.ext_a, t) * egpu::kRegs + f.ra]
+        + static_cast<uint32_t>(f.imm));
+    if (a < 0 || a >= bound)
+      oob[blockIdx.x] = 1;
+    else
+      v = shmem[static_cast<size_t>(blockIdx.x) * depth + a];
+  }
+  __syncthreads();
+  r[t * egpu::kRegs + f.rd] = v;
 }
 
 // The shared body: the policy loads thread t's enable, address and word;
@@ -118,24 +147,15 @@ struct RowIo {
 };
 
 // Launch one scatter; a winner array above 48 KB needs the kernel's
-// dynamic shared-memory limit raised, once per size (per process: the
-// port drives one card).
+// dynamic shared-memory limit raised, once per device and size.
 template <class Io>
 cudaError_t launch_scatter(const Io& io, int n_sm, int threads, int words,
                            cudaStream_t stream) {
-  static std::mutex mu;
-  static int allowed = kStaticSmem;
+  static egpu::SmemLimit limit;
   const int smem = static_cast<int>(sizeof(int)) * words;
-  if (smem > kStaticSmem) {
-    std::lock_guard<std::mutex> lock(mu);
-    if (smem > allowed) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          scatter_kernel<Io>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return err;
-      allowed = smem;
-    }
-  }
+  const cudaError_t err =
+      limit.allow(reinterpret_cast<const void*>(scatter_kernel<Io>), smem);
+  if (err != cudaSuccess) return err;
   scatter_kernel<Io><<<n_sm, threads, smem, stream>>>(io);
   return cudaGetLastError();
 }
@@ -182,4 +202,22 @@ extern "C" int egpu_sto_row(int sel, int opcode, int typ, int rd, int ra,
                  n_threads};
   return static_cast<int>(launch_scatter(io, n_sms, egpu::kRowThreads, bound,
                                          static_cast<cudaStream_t>(stream)));
+}
+
+// The row's 15 fields in FIELDS order, then the wave: regs (n_sms, 512,
+// 16) and oob (n_sms,) bytes, written in place, and shmem (n_sms, depth),
+// read. Addresses are bounded by bound <= depth.
+extern "C" int egpu_lod_row(int sel, int opcode, int typ, int rd, int ra,
+                            int rb, int imm, int x, int ext_a, int ext_b,
+                            int pen, int preg, int pneg, int act_waves,
+                            int act_wthreads, int n_threads, int32_t* regs,
+                            const int32_t* shmem, uint8_t* oob, int n_sms,
+                            int depth, int bound, void* stream) {
+  const egpu::Row f{sel, opcode, typ, rd, ra, rb, imm, x, ext_a, ext_b,
+                    pen, preg, pneg, act_waves, act_wthreads};
+  lod_row_kernel<<<n_sms, egpu::kRowThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      f, reinterpret_cast<uint32_t*>(regs),
+      reinterpret_cast<const uint32_t*>(shmem), oob, depth, bound, n_threads);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -81,48 +81,121 @@ def random_state(rng: np.random.Generator, n_sms: int, depth: int):
     return regs, shmem
 
 
+def _draw_row(rng: np.random.Generator, sels, depth_table) -> dict:
+    """One SM-local row's fields, drawn from the data-switch branches
+    ``sels``."""
+    sel = int(rng.choice(sels))
+    op = int(rng.choice(_OPS_OF_SEL[sel]))
+    f = dict(sel=sel, opcode=op, typ=int(rng.integers(0, 4)),
+             rd=int(rng.integers(0, N_REGS)),
+             ra=int(rng.integers(0, N_REGS)),
+             rb=int(rng.integers(0, N_REGS)),
+             imm=0, x=0, ext_a=0, ext_b=0, pen=0, preg=0, pneg=0,
+             act_waves=int(rng.choice(depth_table)),
+             act_wthreads=int(rng.choice([16, 8, 4, 1])))
+    if sel in (2, 3):
+        f["ra"] = int(rng.choice(list(_ADDR_REGS)))
+        f["imm"] = int(rng.integers(-16, 17))
+    elif sel == 4:
+        f["imm"] = int(rng.integers(-(1 << 14), 1 << 14))
+    elif sel == 6:
+        f["typ"] = 2
+        f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
+    elif sel == 7:
+        f["typ"] = 2
+        f["ra"] = int(rng.choice(list(_FP_REGS)))
+    elif sel == 10:
+        f["imm"] = int(rng.integers(0, 8))
+        f["typ"] = int(rng.integers(0, 3))
+    elif sel == 1 and rng.random() < 0.5:
+        f["typ"] = 2
+        f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
+    if sel != 10 and rng.random() < 0.25:
+        _snoop(rng, f)
+    if rng.random() < 0.3:
+        f["pen"] = 1
+        f["preg"] = int(rng.integers(0, N_REGS))
+        f["pneg"] = int(rng.integers(0, 2))
+    return f
+
+
+def _snoop(rng: np.random.Generator, f: dict, n_waves: int = 32) -> None:
+    """Snoop ``f``'s operands from wavefronts below ``n_waves``."""
+    f["x"] = 1
+    f["ext_a"], f["ext_b"] = (int(v) for v in rng.integers(0, n_waves, 2))
+    f["imm"] = 0
+
+
+def _hazards(rng: np.random.Generator, f: dict, sels, n_waves: int
+             ) -> list[dict]:
+    """``f``, or a short run of rows built around it in which one thread
+    reads what another writes: a snooped row whose destination is one of
+    its own sources, an LOD right after an STO to the same addresses, an INVSQR
+    right after a write to its source, or a DOT/SUM over snooped
+    operands. Snooped operands mostly come from the ``n_waves`` wavefronts
+    a block has, and half of the rows run on all of them, so that the
+    thread read is often one that writes."""
+    if rng.random() < 0.5:
+        f["act_waves"] = n_waves
+    snoop_waves = n_waves if rng.random() < 0.75 else 32
+    p = rng.random()
+    if p < 0.2 and f["sel"] in (1, 2, 6, 11):
+        _snoop(rng, f, snoop_waves)
+        f["rd"] = f["rb"] if f["sel"] != 2 and rng.random() < 0.5 \
+            else f["ra"]
+        return [f]
+    if p < 0.4 and {2, 3} <= set(sels):
+        sto = dict(f, sel=3, opcode=int(_OPS_OF_SEL[3][0]),
+                   ra=int(rng.choice(list(_ADDR_REGS))),
+                   imm=int(rng.integers(-4, 5)),
+                   rd=int(rng.integers(0, N_REGS)))
+        if rng.random() < 0.5:
+            _snoop(rng, sto, snoop_waves)
+        lod = dict(sto, sel=2, opcode=int(_OPS_OF_SEL[2][0]),
+                   rd=int(rng.integers(4, N_REGS)))
+        return [sto, lod]
+    if p < 0.6 and 7 in sels:
+        k = int(rng.choice(list(_FP_REGS)))
+        if rng.random() < 0.5:
+            writer = dict(f, sel=1, opcode=int(rng.choice(_OPS_OF_SEL[1][:3])),
+                          typ=2, rd=k, ra=int(rng.choice(list(_FP_REGS))),
+                          rb=int(rng.choice(list(_FP_REGS))), x=0, ext_a=0,
+                          ext_b=0, imm=0)
+        else:
+            writer = dict(f, sel=4, opcode=int(_OPS_OF_SEL[4][0]), typ=2,
+                          rd=k, x=0, ext_a=0, ext_b=0,
+                          imm=int(rng.integers(1, 1 << 14)))
+        sfu = dict(writer, sel=7, opcode=int(_OPS_OF_SEL[7][0]), typ=2,
+                   rd=int(rng.integers(0, N_REGS)), ra=k, imm=0, x=0,
+                   ext_a=0, ext_b=0)
+        if rng.random() < 0.6:
+            _snoop(rng, sfu, snoop_waves)
+        return [writer, sfu]
+    if p < 0.8 and 6 in sels:
+        dot = dict(f, sel=6, opcode=int(rng.choice(_OPS_OF_SEL[6])), typ=2,
+                   ra=int(rng.choice(list(_FP_REGS))),
+                   rb=int(rng.choice(list(_FP_REGS))))
+        _snoop(rng, dot, snoop_waves)
+        if rng.random() < 0.5:
+            dot["rd"] = dot["ra"]
+        return [dot]
+    return [f]
+
+
 def random_rows(rng: np.random.Generator, n_rows: int, *,
-                sels=tuple(_OPS_OF_SEL), n_threads: int = MAX_THREADS
-                ) -> np.ndarray:
+                sels=tuple(_OPS_OF_SEL), n_threads: int = MAX_THREADS,
+                hazards: bool = False) -> np.ndarray:
     """A (n_rows, 15) int32 table of SM-local rows in ``FIELDS`` order,
-    drawn from the data-switch branches ``sels``."""
+    drawn from the data-switch branches ``sels``. ``hazards`` makes the
+    table dense in accesses of one thread to another's words (see
+    ``_hazards``), the races the segment kernel's barriers must order."""
     n_waves = max(1, (n_threads + 15) // 16)
     depth_table = [n_waves, max(1, n_waves // 2), max(1, n_waves // 4), 1]
+    rows: list[dict] = []
+    while len(rows) < n_rows:
+        f = _draw_row(rng, sels, depth_table)
+        rows.extend(_hazards(rng, f, sels, n_waves) if hazards else [f])
     out = np.zeros((n_rows, len(FIELDS)), np.int32)
-    for i in range(n_rows):
-        sel = int(rng.choice(sels))
-        op = int(rng.choice(_OPS_OF_SEL[sel]))
-        f = dict(sel=sel, opcode=op, typ=int(rng.integers(0, 4)),
-                 rd=int(rng.integers(0, N_REGS)),
-                 ra=int(rng.integers(0, N_REGS)),
-                 rb=int(rng.integers(0, N_REGS)),
-                 imm=0, x=0, ext_a=0, ext_b=0, pen=0, preg=0, pneg=0,
-                 act_waves=int(rng.choice(depth_table)),
-                 act_wthreads=int(rng.choice([16, 8, 4, 1])))
-        if sel in (2, 3):
-            f["ra"] = int(rng.choice(list(_ADDR_REGS)))
-            f["imm"] = int(rng.integers(-16, 17))
-        elif sel == 4:
-            f["imm"] = int(rng.integers(-(1 << 14), 1 << 14))
-        elif sel == 6:
-            f["typ"] = 2
-            f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
-        elif sel == 7:
-            f["typ"] = 2
-            f["ra"] = int(rng.choice(list(_FP_REGS)))
-        elif sel == 10:
-            f["imm"] = int(rng.integers(0, 8))
-            f["typ"] = int(rng.integers(0, 3))
-        elif sel == 1 and rng.random() < 0.5:
-            f["typ"] = 2
-            f["ra"], f["rb"] = (int(v) for v in rng.choice(list(_FP_REGS), 2))
-        if sel != 10 and rng.random() < 0.25:
-            f["x"] = 1
-            f["ext_a"], f["ext_b"] = (int(v) for v in rng.integers(0, 32, 2))
-            f["imm"] = 0
-        if rng.random() < 0.3:
-            f["pen"] = 1
-            f["preg"] = int(rng.integers(0, N_REGS))
-            f["pneg"] = int(rng.integers(0, 2))
+    for i, f in enumerate(rows[:n_rows]):
         out[i] = [f[k] for k in FIELDS]
     return out

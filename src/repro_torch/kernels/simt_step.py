@@ -1,7 +1,13 @@
 """The memory kernels and the fused segment: wrappers and plain versions.
 
-  * ``simt_gather``         — LOD on the step path: each SM's lanes gather
-    from that SM's own shared-memory image (CUDA: ``csrc/smem.cu``);
+  * ``simt_lod_row``        — one LOD data row of the step and trace
+    engines: each SM's lanes load from that SM's own shared-memory image
+    at ``wrap32(operand + imm)``; the address and gate are read from the
+    register file on the card, and the destination register and the oob
+    flags are written in place, one launch per row (CUDA:
+    ``csrc/smem.cu``; plain: ``lod_row_plain``, out of place);
+  * ``simt_gather``         — the same read port over pre-computed
+    addresses, enables and old words (tile form);
   * ``simt_sto_row``        — one STO data row of the step and trace
     engines: the single write port, the highest enabled thread wins on an
     address collision; the address, gate and stored word are read from
@@ -11,8 +17,10 @@
   * ``simt_scatter``        — the same write port over pre-computed
     addresses, values and enables (tile form, on the same kernel body);
   * ``simt_segment``        — a fused run of SM-local rows over an SM
-    batch, registers and shared memory resident on chip for the whole run
-    (CUDA: ``csrc/segment.cu``; plain: ``core.executor.apply_segment_rows``);
+    batch, registers, shared memory and the row table resident on chip for
+    the whole run, with barriers only where ``segment_barriers`` places
+    them (CUDA: ``csrc/segment.cu``; plain:
+    ``core.executor.apply_segment_rows``);
   * ``simt_gather_shared``  — GLD: every SM's lanes gather from the one
     device-wide global-memory image (CUDA: ``csrc/gmem.cu``);
   * ``simt_scatter_shared`` — GST: the single device-wide port drains in
@@ -26,6 +34,7 @@ Words are ``torch.int32``; masks are ``torch.bool``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build, ref
@@ -39,21 +48,111 @@ N_FIELDS = 15
 # fused segment
 # ---------------------------------------------------------------------------
 
-def segment_smem_bytes(depth: int) -> int:
+# a row's barrier bits: before its read phase, between its read and write
+# phases
+BARRIER_BEFORE_READ, BARRIER_BEFORE_WRITE = 1, 2
+# table rows the segment kernel holds in shared memory at once (16 words
+# each: the 15 fields and the bits); a longer segment is copied in chunks
+SEGMENT_CHUNK_ROWS = 512
+_ROW_BYTES = 64
+
+# columns of a FIELDS-ordered row table
+(_SEL, _OPCODE, _TYP, _RD, _RA, _RB, _IMM, _X, _EXT_A, _EXT_B, _PEN, _PREG,
+ _PNEG, _ACT_WAVES, _ACT_WTHREADS) = range(N_FIELDS)
+# data-switch branches that read operand a / operand b with the row's
+# snooping, and those that write their destination register
+_READS_A = frozenset((1, 2, 3, 6, 10, 11))
+_READS_B = frozenset((1, 6, 10, 11))
+_WRITES_RD = frozenset((1, 2, 4, 5, 6, 7, 10, 11))
+
+
+def segment_barriers(rows) -> np.ndarray:
+    """The barriers a fused run of ``rows`` ((n_rows, 15) ``FIELDS``
+    order) needs in the segment kernel, as (n_rows,) int32 bits:
+    ``BARRIER_BEFORE_READ`` and ``BARRIER_BEFORE_WRITE``.
+
+    A thread's read phase reads operands, its gate and the image, and its
+    write phase writes its own register ``rd`` and stores into the image.
+    Accesses of one thread are ordered by the thread itself; an access
+    that may touch another thread's word is *cross*: a snooped operand
+    (thread ``ext*16 + lane``), INVSQR's source when it is not thread 0,
+    an LOD's load from the image, an STO's claim on the winner array, its
+    check of the claim and its store. A barrier is placed, as late as
+    possible, wherever a cross access would otherwise meet a conflicting
+    access (one of the two a write) since the last barrier: RAW and WAR
+    on each register and on the image and the winner array. So an STO row
+    always has its claim -> store barrier, and a row that touches only its
+    own thread's registers gets none. DOT/SUM's terms meet in their warp
+    through shuffles and need no CTA barrier of their own. The kernel puts
+    barriers of its own after the copy-in and before the copy-out."""
+    rows = np.asarray(rows)
+    bits = np.zeros((rows.shape[0],), np.int32)
+    wrote: set = set()          # registers written since the last barrier
+    read_x: set = set()         # registers read cross since the last barrier
+    mem_r = mem_w = win_r = win_w = False
+    for i, f in enumerate(rows):
+        sel, snoop = int(f[_SEL]), int(f[_X]) == 1
+        # read phase: cross reads of registers, the image, the winner array
+        xr = set()
+        if snoop and sel in _READS_A:
+            xr.add(int(f[_RA]))
+        if snoop and sel in _READS_B:
+            xr.add(int(f[_RB]))
+        if sel == 7 and snoop and int(f[_EXT_A]) != 0:
+            xr.add(int(f[_RA]))          # thread 0 reads thread ext_a * 16
+        if (xr & wrote) or (sel == 2 and mem_w) or (sel == 3 and win_r):
+            bits[i] |= BARRIER_BEFORE_READ
+            wrote, read_x = set(), set()
+            mem_r = mem_w = win_r = win_w = False
+        read_x |= xr
+        mem_r |= sel == 2
+        win_w |= sel == 3
+        # write phase: the thread's own rd; an STO checks its claim and
+        # stores into the image
+        rd = int(f[_RD]) if sel in _WRITES_RD else None
+        if (rd in read_x) or (sel == 3 and (mem_r or mem_w or win_w)):
+            bits[i] |= BARRIER_BEFORE_WRITE
+            wrote, read_x = set(), set()
+            mem_r = mem_w = win_r = win_w = False
+        if rd is not None:
+            wrote.add(rd)
+        mem_w |= sel == 3
+        win_r |= sel == 3
+    return bits
+
+
+def segment_smem_bytes(depth: int, n_rows: int = 0) -> int:
     """Dynamic shared memory of one segment CTA: the register file, the
-    shared-memory image and the store-port winner array."""
+    shared-memory image, the store-port winner array and ``n_rows`` rows
+    of the table."""
     # the core's executor imports this module: take its machine constants
     # at call time, so that either may be imported first
     from ..core.machine import MAX_THREADS, N_REGS
 
-    return 4 * (MAX_THREADS * N_REGS + 2 * depth)
+    return 4 * (MAX_THREADS * N_REGS + 2 * depth) + _ROW_BYTES * n_rows
+
+
+def segment_chunk_rows(depth: int, n_rows: int) -> int:
+    """Table rows the segment kernel holds at once beside a ``depth``-word
+    image: ``SEGMENT_CHUNK_ROWS``, or fewer where shared memory is short
+    (the kernel's static oob flag takes 16 bytes beside)."""
+    room = (MAX_DYNAMIC_SMEM - 16 - segment_smem_bytes(depth)) // _ROW_BYTES
+    chunk = min(max(n_rows, 1), SEGMENT_CHUNK_ROWS, room)
+    if chunk < 1:
+        raise ValueError(f"a {depth}-word shared memory needs "
+                         f"{segment_smem_bytes(depth, 1)} bytes of shared "
+                         f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
+    return chunk
 
 
 def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
-                 oob, *, shmem_depth: int | None = None):
+                 oob, *, shmem_depth: int | None = None,
+                 barriers: torch.Tensor | None = None):
     """Run the fused rows ``rows`` ((n_rows, 15) int32, ``FIELDS`` order)
     over the SM batch ``regs`` (n, 512, 16), ``shmem`` (n, depth),
     ``oob`` (n,) bool with per-SM ``block_idx``/``prog_idx`` (n,) int32.
+    ``barriers`` are the rows' ``segment_barriers`` bits ((n_rows,) int32
+    beside ``rows``); without them the wrapper computes them on the host.
     Returns new ``(regs, shmem, oob)``; the inputs are not modified."""
     if not regs.is_cuda:
         from ..core.executor import apply_segment_rows
@@ -63,8 +162,13 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
     from ..core.machine import MAX_THREADS, N_REGS
 
     n, depth = shmem.shape
+    n_rows = rows.shape[0]
     dev = regs.device
-    check_tensor(rows, "rows", torch.int32, (rows.shape[0], N_FIELDS), dev)
+    check_tensor(rows, "rows", torch.int32, (n_rows, N_FIELDS), dev)
+    if barriers is None:
+        barriers = torch.from_numpy(
+            segment_barriers(rows.cpu().numpy())).to(dev)
+    check_tensor(barriers, "barriers", torch.int32, (n_rows,), dev)
     check_tensor(block_idx, "block_idx", torch.int32, (n,), dev)
     check_tensor(prog_idx, "prog_idx", torch.int32, (n,), dev)
     check_tensor(regs, "regs", torch.int32, (n, MAX_THREADS, N_REGS), dev)
@@ -73,19 +177,17 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
     bound = depth if shmem_depth is None else int(shmem_depth)
     if not 1 <= bound <= depth:
         raise ValueError(f"shmem_depth={bound} outside [1, {depth}]")
-    if segment_smem_bytes(depth) > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"a {depth}-word shared memory needs "
-                         f"{segment_smem_bytes(depth)} bytes of shared "
-                         f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
+    chunk = segment_chunk_rows(depth, n_rows)
     regs_o, shmem_o, oob_o = (torch.empty_like(regs),
                               torch.empty_like(shmem), torch.empty_like(oob))
-    if n and rows.shape[0]:
+    if n and n_rows:
         fn = build.entry_point("egpu_segment")
-        build.check(fn(rows.data_ptr(), rows.shape[0], block_idx.data_ptr(),
-                       prog_idx.data_ptr(), regs.data_ptr(),
-                       shmem.data_ptr(), oob.data_ptr(), regs_o.data_ptr(),
-                       shmem_o.data_ptr(), oob_o.data_ptr(), n, depth, bound,
-                       cfg.n_threads, cfg.dim_x, current_stream()), "segment")
+        build.check(fn(rows.data_ptr(), barriers.data_ptr(), n_rows, chunk,
+                       block_idx.data_ptr(), prog_idx.data_ptr(),
+                       regs.data_ptr(), shmem.data_ptr(), oob.data_ptr(),
+                       regs_o.data_ptr(), shmem_o.data_ptr(),
+                       oob_o.data_ptr(), n, depth, bound, cfg.n_threads,
+                       cfg.dim_x, current_stream()), "segment")
         build.launches["segment"] += 1
         return regs_o, shmem_o, oob_o
     return regs.clone(), shmem.clone(), oob.clone()
@@ -107,6 +209,26 @@ def scatter_plain(mem, addr, vals, do):
     from ..core.executor import _last_writer_write
 
     return _last_writer_write(mem, addr, vals, do)
+
+
+def lod_row_plain(cfg, row, regs, shmem, oob, depth: int):
+    """One LOD row (``row`` a ``core.executor.FusedRow``) over ``regs``
+    (n, 512, 16), ``shmem`` (n, width) int32 and ``oob`` (n,) bool:
+    enabled threads load ``shmem[s, wrap32(operand + imm)]`` into
+    ``rd``; one outside ``[0, depth)`` keeps ``rd`` and sets its SM's
+    ``oob``. Nothing is modified; returns the new ``(regs, oob)``."""
+    from ..core.executor import row_eff, row_operand
+
+    d = row.d
+    m = row_eff(cfg.n_threads, row, regs)
+    addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                      .to(torch.int64) + d["imm"])
+    bad = m & ((addr < 0) | (addr >= depth))
+    out = regs.clone()
+    out[:, :, d["rd"]] = gather_plain(shmem, addr.clamp(0, depth - 1),
+                                      m & ~bad,
+                                      regs[:, :, d["rd"]].contiguous())
+    return out, oob | bad.any(dim=1)
 
 
 def sto_row_plain(cfg, row, regs, shmem, oob, depth: int):
@@ -158,12 +280,14 @@ def check_scatter_args(mem, addr, vals, do) -> None:
                          f"memory per CTA, above {MAX_DYNAMIC_SMEM}")
 
 
-def check_sto_row_args(cfg, row, regs, shmem, oob, depth: int) -> tuple:
-    """Raise unless the STO row kernel takes these arguments as they are;
-    returns the row's fields in ``FIELDS`` order."""
+def _check_port_row_args(row, sel: int, name: str, regs, shmem, oob,
+                         depth: int) -> tuple:
+    """Raise unless the ``name`` row kernel (data-switch branch ``sel``)
+    takes these arguments as they are; returns the row's fields in
+    ``FIELDS`` order."""
     fields = row.fields
-    if row.sel != 3:
-        raise ValueError(f"row sel={row.sel} is not an STO row")
+    if row.sel != sel:
+        raise ValueError(f"row sel={row.sel} is not an {name} row")
     check_regs(regs)
     n, width = shmem.shape
     check_tensor(shmem, "shmem", torch.int32, (regs.shape[0], width),
@@ -171,6 +295,19 @@ def check_sto_row_args(cfg, row, regs, shmem, oob, depth: int) -> tuple:
     check_tensor(oob, "oob", torch.bool, (n,), regs.device)
     if not 1 <= depth <= width:
         raise ValueError(f"shmem_depth={depth} outside [1, {width}]")
+    return fields
+
+
+def check_lod_row_args(cfg, row, regs, shmem, oob, depth: int) -> tuple:
+    """Raise unless the LOD row kernel takes these arguments as they are;
+    returns the row's fields in ``FIELDS`` order."""
+    return _check_port_row_args(row, 2, "LOD", regs, shmem, oob, depth)
+
+
+def check_sto_row_args(cfg, row, regs, shmem, oob, depth: int) -> tuple:
+    """Raise unless the STO row kernel takes these arguments as they are;
+    returns the row's fields in ``FIELDS`` order."""
+    fields = _check_port_row_args(row, 3, "STO", regs, shmem, oob, depth)
     if scatter_smem_bytes(depth) > MAX_DYNAMIC_SMEM:
         raise ValueError(f"a {depth}-word shared memory needs "
                          f"{scatter_smem_bytes(depth)} bytes of shared "
@@ -193,6 +330,24 @@ def simt_gather(mem, addr, mask, old):
                    current_stream()), "gather")
     build.launches["gather"] += 1
     return out
+
+
+def simt_lod_row(cfg, row, regs, shmem, oob, depth: int):
+    """One LOD row over a wave: ``regs`` (n, 512, 16) int32, ``shmem``
+    (n, width) int32, ``oob`` (n,) bool, addresses bounded by ``depth``
+    (<= width). On the card ``regs`` and ``oob`` are written in place
+    (one launch) and returned as ``(regs, oob)``."""
+    if not regs.is_cuda:
+        return lod_row_plain(cfg, row, regs, shmem, oob, depth)
+    fields = check_lod_row_args(cfg, row, regs, shmem, oob, depth)
+    n, width = shmem.shape
+    if n:
+        fn = build.entry_point("egpu_lod_row")
+        build.check(fn(*fields, cfg.n_threads, regs.data_ptr(),
+                       shmem.data_ptr(), oob.data_ptr(), n, width,
+                       int(depth), current_stream()), "gather")
+        build.launches["gather"] += 1
+    return regs, oob
 
 
 def simt_scatter(mem, addr, vals, do):

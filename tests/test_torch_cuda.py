@@ -24,8 +24,9 @@ from repro_torch.kernels.simt_alu import (alu_plain, alu_row_plain,
 from repro_torch.kernels.wavefront_dot import (wavefront_dot,
                                                wavefront_dot_plain)
 from repro_torch.kernels.simt_step import (
-    gather_plain, gather_shared_plain, scatter_plain, scatter_shared_plain,
-    simt_gather, simt_gather_shared, simt_scatter, simt_scatter_shared,
+    SEGMENT_CHUNK_ROWS, gather_plain, gather_shared_plain, lod_row_plain,
+    scatter_plain, scatter_shared_plain, segment_barriers, simt_gather,
+    simt_gather_shared, simt_lod_row, simt_scatter, simt_scatter_shared,
     simt_segment, simt_sto_row, sto_row_plain)
 
 
@@ -57,6 +58,65 @@ def test_segment_kernel_matches_plain_version(dev, n_threads, depth, bound):
     want = apply_segment_rows(cfg, rows, *args, shmem_depth=bound)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_threads,depth,bound,n_rows", [
+    (512, 3072, None, 300), (96, 64, 40, 300),
+    (512, 1024, 1000, 2 * SEGMENT_CHUNK_ROWS + 37)])
+def test_segment_kernel_on_hazard_dense_rows(dev, n_threads, depth, bound,
+                                             n_rows):
+    # snooped rd == ra, LOD right after STO, INVSQR right after a write to
+    # its source, DOT over snooped operands; the longest table in chunks
+    rng = np.random.default_rng(n_rows + depth)
+    cfg = SMConfig(n_threads=n_threads, dim_x=16)
+    rows = fuzz.random_rows(rng, n_rows, n_threads=n_threads, hazards=True)
+    regs, shmem = fuzz.random_state(rng, 4, depth)
+    args = (torch.arange(4, dtype=torch.int32, device=dev),
+            torch.full((4,), 3, dtype=torch.int32, device=dev),
+            _words(regs, dev), _words(shmem, dev),
+            torch.tensor([False, True, False, False], device=dev))
+    bits = torch.from_numpy(segment_barriers(rows)).to(dev)
+    want = apply_segment_rows(cfg, rows, *args, shmem_depth=bound)
+    for barriers in (bits, None):
+        got = simt_segment(cfg, torch.from_numpy(rows).to(dev), *args,
+                           shmem_depth=bound, barriers=barriers)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft64", "qrd16", "saxpy"])
+def test_segment_kernel_on_plans_matches_plain_version(dev, name):
+    # every fused item of the plan with the plan's own barrier bits, on a
+    # random four-SM wave
+    from repro_torch.core import compile_megakernel
+    from repro_torch.core.programs import qrd_program
+    from repro_torch.core.programs.fft import fft_program
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+
+    program, cfg = {
+        "fft64": (fft_program(64), SMConfig(max_steps=200_000)),
+        "qrd16": (qrd_program(), SMConfig(imem_depth=1024,
+                                          max_steps=200_000)),
+        "saxpy": (saxpy_grid_program(4096, 512),
+                  SMConfig(max_steps=10_000))}[name]
+    plan = compile_megakernel(program, cfg)
+    rng = np.random.default_rng(len(name))
+    regs, shmem = fuzz.random_state(rng, 4, 3072)
+    args = (torch.arange(4, dtype=torch.int32, device=dev),
+            torch.zeros(4, dtype=torch.int32, device=dev),
+            _words(regs, dev), _words(shmem, dev),
+            torch.zeros(4, dtype=torch.bool, device=dev))
+    table, bits = plan.device_table(dev), plan.device_barriers(dev)
+    fused = [p for kind, p in plan.items if kind == "fused"]
+    assert fused
+    for start, stop in fused:
+        got = simt_segment(cfg, table[start:stop], *args,
+                           barriers=bits[start:stop])
+        want = apply_segment_rows(cfg, plan.sched.table[start:stop], *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -142,7 +202,7 @@ def test_row_kernels_match_plain_versions(dev, n_threads, width, bound):
     rng = np.random.default_rng(n_threads + width)
     cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
     depth = bound or width
-    for sel in (1, 3):
+    for sel in (1, 2, 3):
         for fields in fuzz.random_rows(rng, 120, sels=(sel,),
                                        n_threads=n_threads):
             row = FusedRow.from_fields(fields)
@@ -157,6 +217,12 @@ def test_row_kernels_match_plain_versions(dev, n_threads, width, bound):
                 want = alu_row_plain(cfg, row, regs)
                 got = simt_alu_row(cfg, row, regs.clone())
                 assert torch.equal(got, want), row
+            elif sel == 2:
+                want = lod_row_plain(cfg, row, regs, shmem, oob, depth)
+                got = simt_lod_row(cfg, row, regs.clone(), shmem,
+                                   oob.clone(), depth)
+                assert torch.equal(got[0], want[0]), row
+                assert torch.equal(got[1], want[1]), row
             else:
                 want = sto_row_plain(cfg, row, regs, shmem, oob, depth)
                 got = simt_sto_row(cfg, row, regs, shmem.clone(),
@@ -210,15 +276,48 @@ def test_sto_row_out_of_bound_sets_oob_and_leaves_the_image(dev):
 
 
 @pytest.mark.cuda
+def test_lod_row_out_of_bound_sets_oob_and_keeps_the_register(dev):
+    # thread t loads at regs[s, t, 1] + 1: SM 0 all from word 1, SM 1 from
+    # 39 + t (past the bound of 40 from thread 1), SM 2 below 0, SM 3 far
+    # above the 64-word image; R1 is also the destination, snooped from
+    # wavefront 0 on SM 0
+    tid = torch.arange(512, device=dev, dtype=torch.int32)
+    regs = torch.zeros((4, 512, 16), dtype=torch.int32, device=dev)
+    regs[:, :, 2] = tid + 7
+    regs[1, :, 1] = tid + 38
+    regs[2, :, 1] = -600
+    regs[3, :, 1] = 1 << 30
+    shmem = torch.arange(4 * 64, dtype=torch.int32, device=dev).view(4, 64)
+    oob = torch.zeros(4, dtype=torch.bool, device=dev)
+    row = _field_row(sel=2, opcode=10, rd=2, ra=1, imm=1)
+    want = lod_row_plain(SMConfig(), row, regs, shmem, oob, 40)
+    got_regs, flags = regs.clone(), oob.clone()
+    got = simt_lod_row(SMConfig(), row, got_regs, shmem, flags, 40)
+    assert got[0] is got_regs and got[1] is flags        # in place
+    assert torch.equal(got_regs, want[0]) and torch.equal(flags, want[1])
+    assert flags.tolist() == [False, True, True, True]
+    assert torch.equal(got_regs[0, :, 2], torch.full_like(tid, 1))
+    assert got_regs[1, :1, 2].tolist() == [64 + 39]
+    assert torch.equal(got_regs[1, 1:, 2], tid[1:] + 7)
+    assert torch.equal(got_regs[2:], regs[2:])
+    snooped = _field_row(sel=2, opcode=10, rd=1, ra=1, x=1, ext_a=0)
+    want = lod_row_plain(SMConfig(), snooped, regs, shmem, oob, 64)
+    got_regs = regs.clone()
+    simt_lod_row(SMConfig(), snooped, got_regs, shmem, oob.clone(), 64)
+    assert torch.equal(got_regs, want[0])
+
+
+@pytest.mark.cuda
 def test_runs_on_the_card_leave_the_callers_state_unchanged(dev):
     cfg = SMConfig(n_threads=64, dim_x=64, shmem_depth=128)
     words = assemble("TDX R1\nADD.INT32 R2, R1, R1\nNOP\nNOP\n"
-                     "STO R2, (R1)+0\nSTOP").words
+                     "STO R2, (R1)+0\nLOD R3, (R1)+1\nSTOP").words
     prev = init_state(cfg, device=dev)
     before = prev.regs.clone(), prev.shmem.clone()
     build.reset_launches()
     fin = run(cfg, words, state=prev)
     assert build.launches["alu"] == 1 and build.launches["scatter"] == 1
+    assert build.launches["gather"] == 1
     assert torch.equal(prev.regs, before[0])
     assert torch.equal(prev.shmem, before[1])
     want = run(cfg, words, state=init_state(cfg), backend="cpu")

@@ -1,15 +1,16 @@
-"""The execute stage's ALU and STO rows: the row seam on the CPU.
+"""The execute stage's ALU, LOD and STO rows: the row seam on the CPU.
 
-  * ``alu_row_plain`` / ``sto_row_plain`` (the ``"cpu"`` backend's row
-    seam, the plain versions the row kernels are held against on the
-    card) equal the reference's ``make_data_handlers`` ALU and STO
-    handlers on the same seeded state, word for word: every ALU op and
-    type, snooped operands whose source is the row's own destination,
-    predicated words (negated, and with ``preg == rd``), partial active
-    shapes, and STO collisions and out-of-range addresses with a
-    ``shmem_depth`` below the image's width;
-  * an ALU row and an STO row issue no PyTorch operation outside their
-    one seam call;
+  * ``alu_row_plain`` / ``lod_row_plain`` / ``sto_row_plain`` (the
+    ``"cpu"`` backend's row seam, the plain versions the row kernels are
+    held against on the card) equal the reference's
+    ``make_data_handlers`` ALU, LOD and STO handlers on the same seeded
+    state, word for word: every ALU op and type, snooped operands whose
+    source is the row's own destination, predicated words (negated, and
+    with ``preg == rd``), partial active shapes, and LOD/STO collisions
+    and out-of-range addresses with a ``shmem_depth`` below the image's
+    width;
+  * an ALU, LOD or STO row issues no PyTorch operation outside its one
+    seam call;
   * a step-engine and a trace-engine launch and ``executor.run(...,
     state=prev)`` leave the caller's tensors and numpy arrays unchanged,
     with a seam that writes the state it is given in place, as the row
@@ -39,7 +40,9 @@ from repro_torch.core.machine import init_state
 from repro_torch.kernels import fuzz
 from repro_torch.kernels.simt_alu import (alu_row_plain, check_alu_row_args,
                                           simt_alu_row)
-from repro_torch.kernels.simt_step import (check_sto_row_args,
+from repro_torch.kernels.simt_step import (check_lod_row_args,
+                                           check_sto_row_args,
+                                           lod_row_plain, simt_lod_row,
                                            simt_sto_row, sto_row_plain)
 
 N_SMS = 3
@@ -151,6 +154,45 @@ def test_sto_row_plain_matches_reference_handler(width, bound, variant):
     assert stored and flagged
 
 
+@pytest.mark.parametrize("width,bound", [(64, None), (64, 40), (1024, 1000),
+                                         (3072, None)])
+@pytest.mark.parametrize("variant", ["plain", "snoop", "pred"])
+def test_lod_row_plain_matches_reference_handler(width, bound, variant):
+    rng = np.random.default_rng(2 * width + (bound or 0) + len(variant))
+    regs, shmem = fuzz.random_state(rng, N_SMS, width)
+    depth = bound or width
+    # addresses: lanes below 0, past the bound (also between the bound and
+    # the image's width) and far outside, beside in-range ones
+    regs[:, :, 1] = rng.integers(-3, 3, (N_SMS, 512))
+    regs[:, :, 2] = rng.integers(depth - 8, width + 8, (N_SMS, 512))
+    regs[:, :, 3] = rng.integers(-2**31, 2**31, (N_SMS, 512))
+    oob = np.array([False, True, False])
+    f = dict(sel=2, opcode=10)
+    if variant == "snoop":        # rd is its own (snooped) address source
+        f.update(x=1, ext_a=int(rng.integers(0, 32)), act_waves=16)
+    if variant == "pred":         # and preg == rd
+        f.update(pen=1, pneg=1, act_wthreads=8)
+    loaded = flagged = False
+    for ra in (0, 1, 2, 3):
+        for imm in (0, 2, -16380):
+            rd = ra if variant == "snoop" else int(rng.integers(4, 16))
+            row = _row(**{**f, "ra": ra, "imm": imm, "rd": rd,
+                          "preg": rd if variant == "pred" else 0})
+            want = _reference(row, 512, regs, shmem, oob, bound)
+            got = lod_row_plain(SMConfig(), row, _t(regs), _t(shmem),
+                                torch.from_numpy(oob), depth)
+            assert np.array_equal(_u32(got[0]), want[0]), (row, "regs")
+            assert np.array_equal(got[1].numpy(), want[2]), (row, "oob")
+            # the wrapper takes the plain version on host tensors
+            got = simt_lod_row(SMConfig(), row, _t(regs), _t(shmem),
+                               torch.from_numpy(oob), depth)
+            assert np.array_equal(_u32(got[0]), want[0]), (row, "regs")
+            loaded |= bool((want[0][:, :, rd] != regs[:, :, rd]).any())
+            flagged |= bool(want[2][[0, 2]].any())
+    # the fixture reaches both outcomes: loads and out-of-range lanes
+    assert loaded and flagged
+
+
 # ---------------------------------------------------------------------------
 # one seam call per row
 # ---------------------------------------------------------------------------
@@ -170,7 +212,7 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("sel", [1, 3], ids=["ALU", "STO"])
+@pytest.mark.parametrize("sel", [1, 2, 3], ids=["ALU", "LOD", "STO"])
 def test_rows_issue_only_their_seam_call(sel):
     cpu = get_execute_backend("cpu")
     count = _OpCount()
@@ -188,11 +230,12 @@ def test_rows_issue_only_their_seam_call(sel):
 
     backend = dataclasses.replace(
         cpu, name="counting", alu_row=seam("alu_row", cpu.alu_row),
+        lod_row=seam("lod_row", cpu.lod_row),
         sto_row=seam("sto_row", cpu.sto_row))
     rng = np.random.default_rng(sel)
     regs, shmem = fuzz.random_state(rng, N_SMS, 64)
-    row = _row(sel=sel, opcode=3 if sel == 1 else 11, typ=2, rd=4, ra=1,
-               rb=5, x=1, ext_a=3, pen=1, preg=6)
+    row = _row(sel=sel, opcode={1: 3, 2: 10, 3: 11}[sel], typ=2, rd=4,
+               ra=1, rb=5, x=1, ext_a=3, pen=1, preg=6)
     zero = torch.zeros(N_SMS, dtype=torch.int32)
     h = make_data_handlers(SMConfig(), backend, row, zero, zero,
                            shmem_depth=40)[row.sel]
@@ -200,7 +243,8 @@ def test_rows_issue_only_their_seam_call(sel):
              torch.zeros(N_SMS, dtype=torch.bool))
     with count:
         out = h(state)
-    assert count.ops == [] and calls == [{1: "alu_row", 3: "sto_row"}[sel]]
+    assert count.ops == [] and calls == [
+        {1: "alu_row", 2: "lod_row", 3: "sto_row"}[sel]]
     want = make_data_handlers(SMConfig(), cpu, row, zero, zero,
                               shmem_depth=40)[row.sel](state)
     for g, w in zip(out, want):
@@ -212,10 +256,15 @@ def test_rows_issue_only_their_seam_call(sel):
 # ---------------------------------------------------------------------------
 
 def _in_place(backend: ExecBackend) -> ExecBackend:
-    """``backend`` with ALU and STO rows that write the tensors they are
-    given in place, as the row kernels do on the card."""
+    """``backend`` with ALU, LOD and STO rows that write the tensors they
+    are given in place, as the row kernels do on the card."""
     def alu_row(cfg, row, regs):
         return regs.copy_(backend.alu_row(cfg, row, regs))
+
+    def lod_row(cfg, row, regs, shmem, oob, depth):
+        new_regs, new_oob = backend.lod_row(cfg, row, regs, shmem, oob,
+                                            depth)
+        return regs.copy_(new_regs), oob.copy_(new_oob)
 
     def sto_row(cfg, row, regs, shmem, oob, depth):
         new_shmem, new_oob = backend.sto_row(cfg, row, regs, shmem, oob,
@@ -223,11 +272,13 @@ def _in_place(backend: ExecBackend) -> ExecBackend:
         return shmem.copy_(new_shmem), oob.copy_(new_oob)
 
     return dataclasses.replace(backend, name="cpu-in-place",
-                               alu_row=alu_row, sto_row=sto_row)
+                               alu_row=alu_row, lod_row=lod_row,
+                               sto_row=sto_row)
 
 
 _PROG = ("TDX R1\nADD.INT32 R2, R1, R1\nNOP\nNOP\nSTO R2, (R1)+0\n"
-         "MUL.INT32 R1, R2, R2\nNOP\nNOP\nSTO R1, (R2)+100\nSTOP")
+         "LOD R3, (R1)+1\nMUL.INT32 R1, R2, R2\nNOP\nNOP\n"
+         "STO R1, (R2)+100\nSTO R3, (R2)+101\nSTOP")
 
 
 @pytest.fixture
@@ -300,8 +351,10 @@ def test_row_wrappers_check_their_arguments():
     cfg = SMConfig()
     alu = _row(opcode=3, rd=4)
     sto = _row(sel=3, opcode=11, rd=4)
+    lod = _row(sel=2, opcode=10, rd=4)
     assert check_alu_row_args(cfg, alu, regs) == alu.fields
     assert check_sto_row_args(cfg, sto, regs, shmem, oob, 40) == sto.fields
+    assert check_lod_row_args(cfg, lod, regs, shmem, oob, 40) == lod.fields
     with pytest.raises(ValueError, match="not an ALU opcode"):
         check_alu_row_args(cfg, _row(opcode=11), regs)
     with pytest.raises(ValueError, match="not an STO row"):
@@ -319,6 +372,27 @@ def test_row_wrappers_check_their_arguments():
         _row(rd=16).fields
     with pytest.raises(ValueError, match="active shape"):
         _row(act_waves=0).fields
+    # the LOD row: dtype, shape and device of regs, shmem and oob
+    with pytest.raises(ValueError, match="not an LOD row"):
+        check_lod_row_args(cfg, sto, regs, shmem, oob, 40)
+    with pytest.raises(TypeError, match="regs must be torch.int32"):
+        check_lod_row_args(cfg, lod, regs.to(torch.int64), shmem, oob, 40)
+    with pytest.raises(TypeError, match="shmem must be torch.int32"):
+        check_lod_row_args(cfg, lod, regs, shmem.float(), oob, 40)
+    with pytest.raises(TypeError, match="oob must be torch.bool"):
+        check_lod_row_args(cfg, lod, regs, shmem, oob.to(torch.uint8), 40)
+    with pytest.raises(ValueError, match="shmem has shape"):
+        check_lod_row_args(cfg, lod, regs, shmem[:1], oob, 40)
+    with pytest.raises(ValueError, match="shape"):
+        check_lod_row_args(cfg, lod, regs[:, :, :8], shmem, oob, 40)
+    with pytest.raises(ValueError, match="shmem is on meta"):
+        check_lod_row_args(cfg, lod, regs, shmem.to("meta"), oob, 40)
+    with pytest.raises(ValueError, match="oob is on meta"):
+        check_lod_row_args(cfg, lod, regs, shmem, oob.to("meta"), 40)
+    with pytest.raises(ValueError, match="shmem_depth"):
+        check_lod_row_args(cfg, lod, regs, shmem, oob, 0)
     # on host tensors the wrappers take the plain versions, out of place
     got = simt_sto_row(cfg, sto, regs, shmem, oob, 40)
     assert got[0] is not shmem and got[1] is not oob
+    got = simt_lod_row(cfg, lod, regs, shmem, oob, 40)
+    assert got[0] is not regs and got[1] is not oob

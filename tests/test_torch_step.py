@@ -378,7 +378,8 @@ def test_engines_hand_the_kernels_what_they_take():
     register_backend(ExecBackend(
         name="checked", device="cpu",
         alu_row=checked("alu_row", k_alu.check_alu_row_args, cpu.alu_row),
-        lod=checked("lod", k_step.check_gather_args, cpu.lod),
+        lod_row=checked("lod_row", k_step.check_lod_row_args,
+                        cpu.lod_row),
         sto_row=checked("sto_row", k_step.check_sto_row_args, cpu.sto_row),
         gld=checked("gld", k_step.check_gather_shared_args, cpu.gld),
         gst=checked("gst", k_step.check_scatter_shared_args, cpu.gst)))
@@ -398,4 +399,4 @@ def test_engines_hand_the_kernels_what_they_take():
         launch(dev, programs=[Kernel(a, block=16)], grid_map=[0, 0])
     finally:
         del _EXECUTE_BACKENDS["checked"]
-    assert seen == {"alu_row", "lod", "sto_row", "gld", "gst"}
+    assert seen == {"alu_row", "lod_row", "sto_row", "gld", "gst"}
