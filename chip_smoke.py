@@ -21,9 +21,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      row kernels over fuzzed rows, half of them snooped with the
      destination as their own source; the kernel
      layer's dot over fuzzed words, FFT at N = 2...16384 in both orders,
-     QRD at n = 5...32 with non-finite input), and the flash kernel
-     within 2e-5 in float32 and one bf16 ulp in bfloat16 at D = 1...128
-     with blocks of 16...256;
+     QRD at n = 5...32 over 64 and 37 matrices with non-finite input),
+     and the flash kernel within 2e-5 in float32 and one bf16 ulp in
+     bfloat16 at D = 1...128 with blocks of 16...256;
   3. drives three paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
      width, through the program entry points, each with the launch counts
      set to 0 just before it and read just after:
@@ -61,7 +61,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      the kernel and that call are timed once more on the card alone
      (``device_ms``: queued behind a sleep kernel, so the host's cost
      per launch is hidden); more rows time ``fft`` at FFT-4096 x 1024
-     (a CTA per row), ``flash`` in bfloat16, the tile forms of ``alu``,
+     (a CTA per row), ``qrd`` at QRD-8 x 4096 and QRD-32 x 1024 beside
+     its QRD-16 x 4096, ``flash`` in bfloat16, the tile forms of ``alu``,
      ``gather`` and ``scatter``, ``segment`` on one FFT-64 wave, and a
      whole ALU, LOD and STO handler call beside the per-op composition of
      the same row, in turns;
@@ -88,7 +89,39 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+# FP32 multiplies and adds that may not be fused into FMAs: one operation
+# per lane per clock, half the FMA rate (the QRD kernel's bound)
+PEAK_FP32_UNFUSED_OPS_PER_S = 33.5e12
 PEAK_BF16_OPS_PER_S = 989e12
+
+# the QRD timing rows, (name, batch, n): QRD-16 x 4096 (the solver's shape),
+# QRD-8 x 4096 and QRD-32 x 1024 (the kernel path's random batches), lane
+# groups of 16, 8 and 32; also timed in turns by tools/turns.py
+QRD_SHAPES = (("qrd", 4096, 16), ("qrd8", 4096, 8), ("qrd32", 1024, 32))
+
+
+def qrd_batch(rng, batch: int, n: int) -> np.ndarray:
+    """The QRD timing rows' input: A + 4 I, A a seeded normal draw."""
+    return (rng.standard_normal((batch, n, n)) + 4 * np.eye(n)).astype(
+        np.float32)
+
+
+def qrd_ops(batch: int, n: int) -> int:
+    """The FP32 operations the QRD function needs on finite input. Column
+    j of Q and all later ones are still zero when column j is projected,
+    and their products add nothing (+0.0 plus a zero is +0.0, and a sum
+    from +0.0 is never -0.0), so coeff and corr need j terms each; rrow
+    and the update of the residual take all n columns (the finished
+    columns' residuals are rounding noise, not zero, and reach R)."""
+    per_matrix = sum(
+        4 * n * j          # coeff[k] and corr[i] over the j columns of Q
+        + n                # aj -= corr
+        + j                # r[:, j] += coeff
+        + 2 * n + 1        # nrm2, INVSQR
+        + n                # qj = aj recip
+        + 4 * n * n        # rrow and res -= qj rrow
+        for j in range(n))
+    return batch * per_matrix
 
 REPLACES = {
     "segment": "src/repro/kernels/simt_step.py:146",
@@ -492,14 +525,15 @@ def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
     """The kernel layer's kernels against their plain versions: dot over
     fuzzed words with random masks in both modes, FFT at every N =
     2...16384 in both output orders over row counts that fill no whole
-    CTA, QRD at n = 5, 8, 16, 31, 32 and on non-finite input (all ``==``,
-    NaNs as one word), and flash causal and not, float32 and bfloat16, at
-    D = 1, 33, 64, 96, 128 with blocks from 8 to 256 and S not a multiple
-    of the kernel's 64-row tiles, on finite input and with NaNs and
-    infinities in k and v (the same non-finite places, the rest within
-    FLASH_ATOL and one bf16 ulp), and bfloat16 flash at (32, 1024, 128)
-    causal. Returns the largest error of each (float32 for flash), the
-    largest bfloat16 flash error and that at (32, 1024, 128)."""
+    CTA, QRD at n = 5, 8, 16, 31, 32 over 64 and 37 matrices, with
+    non-finite input (all ``==``, NaNs as one word), and flash causal and
+    not, float32 and bfloat16, at D = 1, 33, 64, 96, 128 with blocks from
+    8 to 256 and S not a multiple of the kernel's 64-row tiles, on finite
+    input and with NaNs and infinities in k and v (the same non-finite
+    places, the rest within FLASH_ATOL and one bf16 ulp), and bfloat16
+    flash at (32, 1024, 128) causal. Returns the largest error of each
+    (float32 for flash), the largest bfloat16 flash error and that at
+    (32, 1024, 128)."""
     import torch
     from repro_torch.kernels import fuzz
     from repro_torch.kernels.fft_r2 import fft_r2, fft_r2_plain
@@ -536,16 +570,20 @@ def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
     # NaNs compare as one word: where the kernel and the plain version
     # both compute one, its payload is the arithmetic's
     one_nan = lambda x: torch.where(torch.isnan(x), float("nan"), x)  # noqa: E731
+    # 37 matrices leave lane groups with no matrix in the last CTA
     for n in (5, 8, 16, 31, 32):
-        a = rng.standard_normal((64, n, n)).astype(np.float32)
-        # matrices 1-4: an infinity, a NaN, a zero column (norm 0, so
-        # q_j = 0 * inf) and a -inf: the reference's NaN masks
-        a[1, 0, 0], a[2, n - 1, n // 2], a[4, 1, n - 1] = np.inf, np.nan, -np.inf
-        a[3, :, n // 2] = 0.0
-        a = t(a)
-        for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
-            worst["qrd"] = max(worst["qrd"], words_equal(
-                f"qrd n={n}", words(one_nan(g)), words(one_nan(w))))
+        for batch in (64, 37):
+            a = rng.standard_normal((batch, n, n)).astype(np.float32)
+            # matrices 1-4: an infinity, a NaN, a zero column (norm 0, so
+            # q_j = 0 * inf) and a -inf: the reference's NaN masks
+            a[1, 0, 0], a[2, n - 1, n // 2] = np.inf, np.nan
+            a[4, 1, n - 1] = -np.inf
+            a[3, :, n // 2] = 0.0
+            a = t(a)
+            for g, w in zip(mgs_qrd(a, block_b=1), mgs_qrd_plain(a)):
+                worst["qrd"] = max(worst["qrd"], words_equal(
+                    f"qrd n={n} x {batch}", words(one_nan(g)),
+                    words(one_nan(w))))
     def flash_close(what, got, want, dtype):
         """NaN, +inf and -inf at the same places, the finite rest within
         FLASH_ATOL (float32) or one bf16 ulp; returns the largest error."""
@@ -1550,19 +1588,24 @@ def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
         shape=f"FFT-{n} x {rows} rows, natural order, a CTA per row "
               f"(library: torch.fft.fft, complex64)")
 
-    batch, n = 4096, 16
-    A = t((rng.standard_normal((batch, n, n))
-           + 4 * np.eye(n)).astype(np.float32))
-    out["qrd"] = dict(
-        ms=cuda_time_ms(lambda: mgs_qrd(A), iters),
-        device_ms=cuda_device_ms(lambda: mgs_qrd(A)),
-        plain_ms=cuda_time_ms(lambda: mgs_qrd_plain(A), 3),
-        library_ms=cuda_time_ms(lambda: torch.linalg.qr(A), 20),
-        library_device_ms=cuda_device_ms(lambda: torch.linalg.qr(A), 20),
-        bytes=3 * batch * n * n * 4,
-        ops=batch * n * (8 * n * n + 8 * n + 1),
-        shape=f"QRD-{n} x {batch} (A += 4 I; library: torch.linalg.qr, "
-              f"the same factorisation up to the signs of R's diagonal)")
+    # the QRD rows' bound counts each FP32 multiply and add at the unfused
+    # rate: the plain version's order forbids FMA (-fmad=false, one
+    # rounding per operation), so the 67 TFLOP/s FMA rate is out of reach
+    for name, batch, n in QRD_SHAPES:
+        A = t(qrd_batch(rng, batch, n))
+        lib_iters = 20 if n == 16 else 5
+        out[name] = dict(
+            ms=cuda_time_ms(lambda: mgs_qrd(A), iters),
+            device_ms=cuda_device_ms(lambda: mgs_qrd(A)),
+            plain_ms=cuda_time_ms(lambda: mgs_qrd_plain(A), 3),
+            library_ms=cuda_time_ms(lambda: torch.linalg.qr(A), lib_iters),
+            library_device_ms=cuda_device_ms(lambda: torch.linalg.qr(A),
+                                             lib_iters),
+            bytes=3 * batch * n * n * 4, ops=qrd_ops(batch, n),
+            peak_ops=PEAK_FP32_UNFUSED_OPS_PER_S,
+            shape=f"QRD-{n} x {batch} (A += 4 I; library: torch.linalg.qr, "
+                  f"the same factorisation up to the signs of R's "
+                  f"diagonal; bound at the unfused FP32 rate)")
 
     # the library call sees the heads as (1, BH, S, D): with (BH, S, D)
     # SDPA takes its math backend (three kernels, float32 scores in device
@@ -1616,7 +1659,8 @@ def main() -> int:
     libs = phases.run("build", build.build_all)
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
                 print("ptxas:", line.strip())
     seg_err = phases.run("segment-vs-plain", lambda: check_segment(rng, dev))
     g_err, s_err = phases.run("gmem-vs-plain", lambda: check_gmem(rng, dev))

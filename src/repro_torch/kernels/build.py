@@ -159,7 +159,27 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def current_stream() -> int:
-    """The handle of PyTorch's current stream on the current device, on
-    which every kernel launches (read without building a Stream object)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, a CUDA device
+    with its index, as a tensor's (read without building a Stream
+    object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(fn: str, count: str, device: torch.device, *args) -> None:
+    """Launch the C entry point ``fn`` with ``args`` on ``device``, where
+    its tensors lie: on that device's current stream, with the device made
+    current for the call (a kernel launches on the current device, and the
+    raised shared-memory limits are kept per device). Raises if the launch
+    was refused; counts it in ``launches[count]``.
+
+    Entering ``torch.cuda.device`` costs the host a few microseconds a
+    launch, so it is entered only when ``device`` is not already current."""
+    f = entry_point(fn)
+    if device.index == torch.cuda.current_device():
+        err = f(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = f(*args, current_stream(device))
+    check(err, count)
+    launches[count] += 1

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from . import build, ref
-from .build import MAX_DYNAMIC_SMEM, check_tensor, current_stream
+from .build import MAX_DYNAMIC_SMEM, check_tensor
 
 
 def _twiddle_table(n: int) -> np.ndarray:
@@ -95,10 +95,7 @@ def fft_r2(re, im, *, block_b: int = 8, natural: bool = True):
                          f"row; a block may use at most {MAX_DYNAMIC_SMEM}")
     tw = twiddles(n, dev)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
-    fn = build.entry_point("egpu_fft_r2")
-    build.check(fn(tw.data_ptr(), re.data_ptr(), im.data_ptr(),
-                   ore.data_ptr(), oim.data_ptr(), B, n,
-                   n.bit_length() - 1, int(bool(natural)),
-                   current_stream()), "fft")
-    build.launches["fft"] += 1
+    build.launch("egpu_fft_r2", "fft", dev, tw.data_ptr(), re.data_ptr(),
+                 im.data_ptr(), ore.data_ptr(), oim.data_ptr(), B, n,
+                 n.bit_length() - 1, int(bool(natural)))
     return ore, oim

@@ -28,7 +28,7 @@ import math
 import torch
 
 from . import build
-from .build import check_tensor, current_stream
+from .build import check_tensor
 from .ref import NEG_INF
 
 # the kernel's query rows per CTA and widest head
@@ -99,10 +99,8 @@ def flash_attention(q, k, v, *, causal: bool = True, blk_q: int = 128,
     # rows load as 16-byte copies where D and every pointer allow
     vec = D * q.element_size() % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (q, k, v))
-    fn = build.entry_point("egpu_flash_attention")
-    build.check(fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), BH, S, D, int(bool(causal)),
-                   blk_q, blk_k, int(vec), current_stream()), "flash")
-    build.launches["flash"] += 1
+    build.launch("egpu_flash_attention", "flash", q.device, _DTYPES[q.dtype],
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                 S, D, int(bool(causal)), blk_q, blk_k, int(vec))
     return out
 

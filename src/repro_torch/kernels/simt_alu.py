@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .build import check_tensor, current_stream
+from .build import check_tensor
 
 
 def alu_plain(op: int, typ: int, a, b, mask, old):
@@ -48,11 +48,9 @@ def simt_alu(op: int, typ: int, a, b, mask, old):
         return alu_plain(op, typ, a, b, mask, old)
     check_alu_args(op, typ, a, b, mask, old)
     out = torch.empty_like(old)
-    fn = build.entry_point("egpu_alu")
-    build.check(fn(int(op), int(typ), a.data_ptr(), b.data_ptr(),
-                   mask.data_ptr(), old.data_ptr(), out.data_ptr(),
-                   old.numel(), current_stream()), "alu")
-    build.launches["alu"] += 1
+    build.launch("egpu_alu", "alu", a.device, int(op), int(typ), a.data_ptr(),
+                 b.data_ptr(), mask.data_ptr(), old.data_ptr(), out.data_ptr(),
+                 old.numel())
     return out
 
 
@@ -107,8 +105,6 @@ def simt_alu_row(cfg, row, regs):
         return alu_row_plain(cfg, row, regs)
     fields = check_alu_row_args(cfg, row, regs)
     if regs.shape[0]:
-        fn = build.entry_point("egpu_alu_row")
-        build.check(fn(*fields, cfg.n_threads, regs.data_ptr(),
-                       regs.shape[0], current_stream()), "alu")
-        build.launches["alu"] += 1
+        build.launch("egpu_alu_row", "alu", regs.device, *fields,
+                     cfg.n_threads, regs.data_ptr(), regs.shape[0])
     return regs

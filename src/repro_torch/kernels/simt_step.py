@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import build, ref
-from .build import MAX_DYNAMIC_SMEM, check_tensor, current_stream
+from .build import MAX_DYNAMIC_SMEM, check_tensor
 from .simt_alu import check_regs
 
 N_FIELDS = 15
@@ -181,14 +181,12 @@ def simt_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
     regs_o, shmem_o, oob_o = (torch.empty_like(regs),
                               torch.empty_like(shmem), torch.empty_like(oob))
     if n and n_rows:
-        fn = build.entry_point("egpu_segment")
-        build.check(fn(rows.data_ptr(), barriers.data_ptr(), n_rows, chunk,
-                       block_idx.data_ptr(), prog_idx.data_ptr(),
-                       regs.data_ptr(), shmem.data_ptr(), oob.data_ptr(),
-                       regs_o.data_ptr(), shmem_o.data_ptr(),
-                       oob_o.data_ptr(), n, depth, bound, cfg.n_threads,
-                       cfg.dim_x, current_stream()), "segment")
-        build.launches["segment"] += 1
+        build.launch("egpu_segment", "segment", dev, rows.data_ptr(),
+                     barriers.data_ptr(), n_rows, chunk, block_idx.data_ptr(),
+                     prog_idx.data_ptr(), regs.data_ptr(), shmem.data_ptr(),
+                     oob.data_ptr(), regs_o.data_ptr(), shmem_o.data_ptr(),
+                     oob_o.data_ptr(), n, depth, bound, cfg.n_threads,
+                     cfg.dim_x)
         return regs_o, shmem_o, oob_o
     return regs.clone(), shmem.clone(), oob.clone()
 
@@ -324,11 +322,9 @@ def simt_gather(mem, addr, mask, old):
     check_gather_args(mem, addr, mask, old)
     n, depth = mem.shape
     out = torch.empty_like(old)
-    fn = build.entry_point("egpu_gather")
-    build.check(fn(mem.data_ptr(), depth, addr.data_ptr(), mask.data_ptr(),
-                   old.data_ptr(), out.data_ptr(), old.shape[1], old.numel(),
-                   current_stream()), "gather")
-    build.launches["gather"] += 1
+    build.launch("egpu_gather", "gather", mem.device, mem.data_ptr(), depth,
+                 addr.data_ptr(), mask.data_ptr(), old.data_ptr(),
+                 out.data_ptr(), old.shape[1], old.numel())
     return out
 
 
@@ -342,11 +338,9 @@ def simt_lod_row(cfg, row, regs, shmem, oob, depth: int):
     fields = check_lod_row_args(cfg, row, regs, shmem, oob, depth)
     n, width = shmem.shape
     if n:
-        fn = build.entry_point("egpu_lod_row")
-        build.check(fn(*fields, cfg.n_threads, regs.data_ptr(),
-                       shmem.data_ptr(), oob.data_ptr(), n, width,
-                       int(depth), current_stream()), "gather")
-        build.launches["gather"] += 1
+        build.launch("egpu_lod_row", "gather", regs.device, *fields,
+                     cfg.n_threads, regs.data_ptr(), shmem.data_ptr(),
+                     oob.data_ptr(), n, width, int(depth))
     return regs, oob
 
 
@@ -361,11 +355,9 @@ def simt_scatter(mem, addr, vals, do):
     n, depth = mem.shape
     out = mem.clone()
     if n:
-        fn = build.entry_point("egpu_scatter")
-        build.check(fn(out.data_ptr(), depth, addr.data_ptr(),
-                       vals.data_ptr(), do.data_ptr(), n, vals.shape[1],
-                       current_stream()), "scatter")
-        build.launches["scatter"] += 1
+        build.launch("egpu_scatter", "scatter", mem.device, out.data_ptr(),
+                     depth, addr.data_ptr(), vals.data_ptr(), do.data_ptr(), n,
+                     vals.shape[1])
     return out
 
 
@@ -379,11 +371,9 @@ def simt_sto_row(cfg, row, regs, shmem, oob, depth: int):
     fields = check_sto_row_args(cfg, row, regs, shmem, oob, depth)
     n, width = shmem.shape
     if n:
-        fn = build.entry_point("egpu_sto_row")
-        build.check(fn(*fields, cfg.n_threads, regs.data_ptr(),
-                       shmem.data_ptr(), oob.data_ptr(), n, width,
-                       int(depth), current_stream()), "scatter")
-        build.launches["scatter"] += 1
+        build.launch("egpu_sto_row", "scatter", regs.device, *fields,
+                     cfg.n_threads, regs.data_ptr(), shmem.data_ptr(),
+                     oob.data_ptr(), n, width, int(depth))
     return shmem, oob
 
 
@@ -432,11 +422,9 @@ def simt_gather_shared(gmem, addr, mask, old):
         return gather_shared_plain(gmem, addr, mask, old)
     check_gather_shared_args(gmem, addr, mask, old)
     out = torch.empty_like(old)
-    fn = build.entry_point("egpu_gather_shared")
-    build.check(fn(gmem.data_ptr(), gmem.shape[0], addr.data_ptr(),
-                   mask.data_ptr(), old.data_ptr(), out.data_ptr(),
-                   old.numel(), current_stream()), "gather_shared")
-    build.launches["gather_shared"] += 1
+    build.launch("egpu_gather_shared", "gather_shared", gmem.device,
+                 gmem.data_ptr(), gmem.shape[0], addr.data_ptr(),
+                 mask.data_ptr(), old.data_ptr(), out.data_ptr(), old.numel())
     return out
 
 
@@ -449,9 +437,8 @@ def simt_scatter_shared(gmem, addr, vals, do):
     check_scatter_shared_args(gmem, addr, vals, do)
     out = gmem.clone()
     winner = torch.full_like(gmem, -1)
-    fn = build.entry_point("egpu_scatter_shared")
-    build.check(fn(out.data_ptr(), gmem.shape[0], addr.data_ptr(),
-                   vals.data_ptr(), do.data_ptr(), winner.data_ptr(),
-                   vals.numel(), current_stream()), "scatter_shared")
-    build.launches["scatter_shared"] += 1
+    build.launch("egpu_scatter_shared", "scatter_shared", gmem.device,
+                 out.data_ptr(), gmem.shape[0], addr.data_ptr(),
+                 vals.data_ptr(), do.data_ptr(), winner.data_ptr(),
+                 vals.numel())
     return out

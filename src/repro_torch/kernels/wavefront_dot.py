@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .build import check_tensor, current_stream
+from .build import check_tensor
 
 N_THREADS = 512
 N_SP = 16
@@ -48,8 +48,6 @@ def wavefront_dot(a, b, mask, mode: int = 0, *, block_sm: int = 8):
     check_tensor(b, "b", torch.float32, a.shape, dev)
     check_tensor(mask, "mask", torch.bool, a.shape, dev)
     out = torch.empty((n_sm, N_WAVES), dtype=torch.float32, device=dev)
-    fn = build.entry_point("egpu_wavefront_dot")
-    build.check(fn(mode, a.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), n_sm * N_WAVES, current_stream()), "dot")
-    build.launches["dot"] += 1
+    build.launch("egpu_wavefront_dot", "dot", dev, mode, a.data_ptr(),
+                 b.data_ptr(), mask.data_ptr(), out.data_ptr(), n_sm * N_WAVES)
     return out

@@ -355,9 +355,19 @@ def test_fft_kernel_matches_plain_version(dev, n, natural):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
+def _qrd_same_words(got, want):
+    # word for word; NaNs compare as one word (where both compute one, its
+    # payload is the arithmetic's)
+    one_nan = lambda x: torch.where(torch.isnan(x), float("nan"), x)  # noqa: E731
+    for g, w in zip(got, want):
+        assert torch.equal(one_nan(g).view(torch.int32),
+                           one_nan(w).view(torch.int32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 16, 32])
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 9, 15, 16, 17, 31, 32])
 def test_qrd_kernel_matches_plain_version(dev, n):
+    # lane groups of 8, 16 and 32, each full and with lanes past n
     rng = np.random.default_rng(n)
     a = torch.from_numpy(rng.standard_normal((64, n, n)).astype(
         np.float32)).to(dev)
@@ -366,19 +376,100 @@ def test_qrd_kernel_matches_plain_version(dev, n):
 
 
 @pytest.mark.cuda
-def test_qrd_kernel_on_non_finite_input_matches_plain_version(dev):
+@pytest.mark.parametrize("batch", [1, 37, 4096])
+def test_qrd_kernel_on_ragged_batches_matches_plain_version(dev, batch):
+    # 8 matrices to a CTA at n = 16: 1 and 37 leave groups with no matrix
+    rng = np.random.default_rng(batch)
+    a = torch.from_numpy(rng.standard_normal((batch, 16, 16)).astype(
+        np.float32)).to(dev)
+    for g, w in zip(mgs_qrd(a, block_b=1), mgs_qrd_plain(a)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_qrd_kernel_on_non_finite_input_matches_plain_version(dev, n):
     # an infinity, a NaN, a zero column (q_j = 0 * inf) and a -inf: the
-    # NaN masks the one-hot products of the reference leave
-    rng = np.random.default_rng(9)
-    a = rng.standard_normal((8, 8, 8)).astype(np.float32)
-    a[1, 0, 0], a[2, 7, 4], a[4, 1, 7] = np.inf, np.nan, -np.inf
-    a[3, :, 4] = 0.0
+    # NaN masks the one-hot products of the reference leave. At n = 16
+    # the non-finite 1 and 4 share their warps with the finite 0 and 5, in
+    # the second and the first lane group; at n = 8 warp 0 holds 0-3, warp
+    # 1 holds 4-7
+    rng = np.random.default_rng(9 + n)
+    a = rng.standard_normal((8, n, n)).astype(np.float32)
+    a[1, 0, 0], a[2, n - 1, n // 2], a[4, 1, n - 1] = np.inf, np.nan, -np.inf
+    a[3, :, n // 2] = 0.0
     a = torch.from_numpy(a).to(dev)
-    one_nan = lambda x: torch.where(torch.isnan(x), float("nan"), x)  # noqa: E731
-    for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
-        assert torch.equal(one_nan(g).view(torch.int32),
-                           one_nan(w).view(torch.int32))
-    assert torch.isfinite(g[0]).all() and torch.isnan(g[1]).any()
+    q, r = mgs_qrd(a)
+    _qrd_same_words((q, r), mgs_qrd_plain(a))
+    assert torch.isfinite(q[0]).all() and torch.isnan(q[1]).any()
+    # a finite matrix beside a non-finite one in the same warp gives what
+    # it gives alone
+    for m in (0, 5, 6, 7):
+        assert torch.isfinite(q[m]).all() and torch.isfinite(r[m]).all()
+        for g, w in zip((q[m], r[m]), mgs_qrd_plain(a[m:m + 1])):
+            assert torch.equal(g.view(torch.int32), w[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_slot", [0, 1])
+def test_qrd_kernel_keeps_a_warp_neighbour_finite(dev, bad_slot):
+    # two matrices of order 16 in one warp, the non-finite one in either
+    # lane group
+    rng = np.random.default_rng(20 + bad_slot)
+    a = rng.standard_normal((2, 16, 16)).astype(np.float32)
+    a[bad_slot, 8, 0], a[bad_slot, 0, 15] = np.nan, np.inf
+    a = torch.from_numpy(a).to(dev)
+    q, r = mgs_qrd(a)
+    _qrd_same_words((q, r), mgs_qrd_plain(a))
+    good = 1 - bad_slot
+    assert torch.isnan(q[bad_slot]).any()
+    for g, w in zip((q[good], r[good]), mgs_qrd_plain(a[good:good + 1])):
+        assert torch.equal(g.view(torch.int32), w[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 32])
+def test_qrd_kernel_on_overflowing_norms_matches_plain_version(dev, n):
+    # column scales whose norms overflow or underflow (recip 0 or inf), a
+    # sprinkle of non-finite words, and a finite column whose products
+    # overflow only in later columns: partial NaN masks
+    rng = np.random.default_rng(30 + n)
+    a = rng.standard_normal((64, n, n))
+    scale = rng.choice([1.0, 1e20, 1e30, 1e-25, 1e-40, 3e38],
+                       size=(64, 1, n), p=[.5, .1, .1, .1, .1, .1])
+    with np.errstate(over="ignore"):
+        a = (a * scale).astype(np.float32)
+    hit = rng.random(a.shape) < 0.02
+    a[hit] = rng.choice([np.inf, -np.inf, np.nan], size=int(hit.sum()))
+    a[2] = rng.standard_normal((n, n))
+    a[2, :, 0] = 2e38
+    a = torch.from_numpy(a).to(dev)
+    _qrd_same_words(mgs_qrd(a), mgs_qrd_plain(a))
+
+
+@pytest.mark.cuda
+def test_launches_take_the_stream_of_their_tensors_device(dev):
+    # the handle a wrapper hands its kernel is the current stream of the
+    # tensors' device, and the kernel runs there: queued on s behind a
+    # sleep and the copy of its input, it factors the copied matrices (a
+    # launch on any other stream would run at once, on the NaNs). One
+    # launch first loads the library and the kernel, which would otherwise
+    # take longer than the sleep
+    src = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (37, 16, 16)).astype(np.float32)).to("cuda:0")
+    mgs_qrd(src, block_b=1)
+    a = torch.full_like(src, float("nan"))
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(device="cuda:0")
+    with torch.cuda.stream(s):
+        assert build.current_stream(torch.device("cuda:0")) == s.cuda_stream
+        torch.cuda._sleep(100_000_000)
+        a.copy_(src)
+        got = mgs_qrd(a, block_b=1)
+    s.synchronize()
+    assert build.current_stream(torch.device("cuda:0")) != s.cuda_stream
+    for g, w in zip(got, mgs_qrd_plain(src)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Time one kernel, or the launch paths, of two or more checkouts in
+turns, on one card.
+
+    python3 tools/turns.py KERNEL ROOT_A ROOT_B [...]
+
+KERNEL is ``segment``, ``qrd`` or ``paths``. It runs the roots in order
+and then in reverse (A, B, B, A for two), each turn one process on that
+checkout's ``src``: the process builds the checkout's kernels in its own
+``build/`` and times the kernel at fixed shapes, each held ``==`` to its
+plain version first. ``ms`` is CUDA events over 200 launches with the
+host's cost per launch, ``device_ms`` the card alone (50 launches queued
+behind a sleep kernel). Each turn prints one JSON line after the card's
+name and power limit.
+
+- ``segment``: ``simt_segment`` on one wave of four SMs of QRD-16 and of
+  FFT-64 (``chip_smoke.segment_wave``'s shapes: the plan's one fused
+  segment, zero registers, the programs' own shared-memory images of
+  seeded random inputs), held to ``apply_segment_rows``. A checkout whose
+  plan places barriers (``MegakernelPlan.device_barriers``) hands them to
+  its kernel.
+- ``qrd``: ``mgs_qrd`` at ``chip_smoke.QRD_SHAPES`` on
+  ``chip_smoke.qrd_batch``'s input, held to ``mgs_qrd_plain``.
+- ``paths``: not one kernel but the host's cost around them: a launch of
+  QRD-16 x 16 and of FFT-64 x 64 on four SMs through the megakernel, step
+  and trace engines, timed on the host's clock to the end of
+  ``torch.cuda.synchronize()`` six times (``first_ms`` the first, with
+  its host lowering; ``median_ms`` the median of the other five), then
+  held to the same launch on the host (``chip_smoke.same_launch``). A
+  fresh process per turn keeps what else ran before out of the times.
+
+    python3 tools/turns.py segment --rows ROOT
+
+times one checkout's segment kernel (card alone) on the first k rows of
+each wave, k = 1, a quarter, a half and all of them, with the plan's
+barriers and with both barriers on every row: the slope is the cost per
+row, the intercept the launch with its copies in and out, and the
+difference between the two what the barriers the plan leaves out would
+cost.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def segment(cs, root: Path, prefixes: bool = False) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import SMConfig, compile_megakernel
+    from repro_torch.core.executor import apply_segment_rows
+    from repro_torch.core.programs import fft_shmem, qrd_program, qrd_shmem
+    from repro_torch.core.programs.fft import fft_program
+    from repro_torch.kernels.simt_step import simt_segment
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20260611)
+    waves = {
+        "qrd16": (qrd_program(), SMConfig(n_threads=256, dim_x=16,
+                                          imem_depth=1024,
+                                          max_steps=200_000),
+                  lambda: qrd_shmem(rng.standard_normal((16, 16)), 3072)),
+        "fft64": (fft_program(64), SMConfig(n_threads=32, dim_x=32,
+                                            max_steps=200_000),
+                  lambda: fft_shmem((rng.standard_normal(64) + 1j
+                                     * rng.standard_normal(64)).astype(
+                                         np.complex64), 3072))}
+    out = {}
+    for name, (program, cfg, image) in waves.items():
+        plan = compile_megakernel(program, cfg)
+        ((_, (start, stop)),) = plan.items
+        rows = plan.device_table(dev)[start:stop]
+        kw = ({"barriers": plan.device_barriers(dev)[start:stop]}
+              if hasattr(plan, "device_barriers") else {})
+        state = (torch.arange(4, dtype=torch.int32, device=dev),
+                 torch.zeros(4, dtype=torch.int32, device=dev),
+                 torch.zeros((4, 512, 16), dtype=torch.int32, device=dev),
+                 torch.from_numpy(np.stack([image() for _ in range(4)])
+                                  .view(np.int32)).to(dev),
+                 torch.zeros(4, dtype=torch.bool, device=dev))
+        got = simt_segment(cfg, rows, *state, **kw)
+        want = apply_segment_rows(cfg, plan.sched.table[start:stop], *state)
+        for g, w in zip(got, want):
+            cs.words_equal(f"segment {name}", g, w)
+        kern = lambda: simt_segment(cfg, rows, *state, **kw)  # noqa: E731
+        out[name] = dict(rows=stop - start, ms=cs.cuda_time_ms(kern, 200),
+                         device_ms=cs.cuda_device_ms(kern))
+        if prefixes:
+            n = stop - start
+            every = torch.full_like(kw["barriers"], 3)
+            out[name]["prefix_device_ms"] = {
+                k: [cs.cuda_device_ms(lambda: simt_segment(
+                    cfg, rows[:k], *state, barriers=bits[:k]))
+                    for bits in (kw["barriers"], every)]
+                for k in (1, n // 4, n // 2, n)}
+    return out
+
+
+def qrd(cs, root: Path) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
+
+    rng = np.random.default_rng(20260611)
+    out = {}
+    for name, batch, n in cs.QRD_SHAPES:
+        a = torch.from_numpy(cs.qrd_batch(rng, batch, n)).cuda()
+        for g, w in zip(mgs_qrd(a), mgs_qrd_plain(a)):
+            cs.words_equal(f"{name} {root}", g.view(torch.int32),
+                           w.view(torch.int32))
+        kern = lambda: mgs_qrd(a)  # noqa: E731
+        out[name] = dict(shape=f"QRD-{n} x {batch}",
+                         ms=cs.cuda_time_ms(kern, 200),
+                         device_ms=cs.cuda_device_ms(kern))
+    return out
+
+
+def paths(cs, root: Path) -> dict:
+    import time
+
+    import numpy as np
+    import torch
+    from repro_torch.core import DeviceConfig, SMConfig
+    from repro_torch.core.programs import run_fft_batch, run_qrd_batch
+
+    rng = np.random.default_rng(20260611)
+    As = rng.standard_normal((16, 16, 16)).astype(np.float32)
+    xs = (rng.standard_normal((64, 64))
+          + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
+    work = {"qrd16": (lambda d: run_qrd_batch(As, device=d)[2],
+                      SMConfig(imem_depth=1024, max_steps=200_000)),
+            "fft64": (lambda d: run_fft_batch(xs, device=d)[1],
+                      SMConfig(max_steps=200_000))}
+    out = {}
+    for name, (run, sm) in work.items():
+        for engine in ("megakernel", "step", "trace"):
+            dev = DeviceConfig(n_sms=4, engine=engine, sm=sm)
+            walls = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run(dev)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            cs.same_launch(f"{name} {engine}", res, run(DeviceConfig(
+                n_sms=4, engine=engine, backend="cpu", sm=sm)))
+            out[f"{name}_{engine}"] = dict(
+                first_ms=walls[0], median_ms=float(np.median(walls[1:])))
+    return out
+
+
+KERNELS = {"segment": segment, "qrd": qrd, "paths": paths}
+
+
+def one(kernel: str, root: Path, prefixes: bool = False) -> dict:
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs                  # the timing helpers
+    sys.path.insert(0, str(root / "src"))    # the checkout under test
+    import repro_torch
+
+    if not Path(repro_torch.__file__).is_relative_to(root):
+        raise RuntimeError(f"repro_torch was not imported from {root}")
+    kw = {"prefixes": True} if prefixes else {}
+    return {"root": str(root), **KERNELS[kernel](cs, root, **kw)}
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) < 3 or argv[0] not in KERNELS:
+        print(__doc__, file=sys.stderr)
+        return 2
+    kernel, mode = argv[0], argv[1]
+    if mode in ("--one", "--rows") and len(argv) == 3:
+        if mode == "--rows" and kernel != "segment":
+            print("--rows times the segment kernel only", file=sys.stderr)
+            return 2
+        print(json.dumps(one(kernel, Path(argv[2]).resolve(),
+                             prefixes=mode == "--rows")), flush=True)
+        return 0
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+
+    print(cs.card_line(), flush=True)
+    roots = [str(Path(r).resolve()) for r in argv[1:]]
+    for root in roots + roots[::-1]:
+        subprocess.run([sys.executable, __file__, kernel, "--one", root],
+                       check=True, timeout=600)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
