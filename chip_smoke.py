@@ -17,9 +17,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      INVSQR, every ALU op and type, shared-memory depths 64, 1024 and
      3072; the segment kernel also over hazard-dense rows, in which one
      thread reads what another writes, and over the FFT-64, QRD-16 and
-     SAXPY plans with the barriers each plan placed; the ALU, LOD and STO
-     row kernels over fuzzed rows, half of them snooped with the
-     destination as their own source; the kernel
+     SAXPY plans with the barriers each plan placed; the ALU, LOD, STO,
+     GLD and GST row kernels over fuzzed rows, half of them snooped with
+     the destination as their own source, GST's collisions across 16 SMs
+     and its claims in device memory for a 2**20-word image; the kernel
      layer's dot over fuzzed words, FFT at N = 2...16384 in both orders,
      QRD at n = 5...32 over 64 and 37 matrices with non-finite input),
      and the flash kernel within 2e-5 in float32 and one bf16 ulp in
@@ -46,13 +47,15 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      Each launch of the first three paths is repeated with the host's
      plain versions and must give equal state, counters and profile; the
      numerics are checked against numpy; every kernel of a path must
-     have launched in it, and on the step and trace paths ``alu``,
-     ``gather`` and ``scatter`` exactly once per ALU, LOD and STO row the
-     host executed. One ALU, one LOD and one STO row of each of those
-     engines must issue one launch and no PyTorch operation (a
-     TorchDispatchMode count, with the profiler's count of CUDA kernels,
+     have launched in it, and ``alu``, ``gather``, ``scatter``,
+     ``gather_shared`` and ``scatter_shared`` exactly once per ALU, LOD,
+     STO, GLD and GST row the host executed (the megakernel's SAXPY, and
+     the step and trace paths). One ALU, LOD, STO, GLD and GST row of the
+     step and trace engines, and one GLD and GST row of the megakernel,
+     must issue one launch, one CUDA kernel and no PyTorch operation (a
+     TorchDispatchMode count and the profiler's count of CUDA kernels),
      beside the per-op composition of the same rows that the row seam
-     replaced);
+     replaced;
   4. reproduces the [4sm] golden entries the port reaches from
      tests/golden_cycles.json;
   5. times each kernel at its path's shapes with CUDA events beside its
@@ -63,9 +66,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      per launch is hidden); more rows time ``fft`` at FFT-4096 x 1024
      (a CTA per row), ``qrd`` at QRD-8 x 4096 and QRD-32 x 1024 beside
      its QRD-16 x 4096, ``flash`` in bfloat16, the tile forms of ``alu``,
-     ``gather`` and ``scatter``, ``segment`` on one FFT-64 wave, and a
-     whole ALU, LOD and STO handler call beside the per-op composition of
-     the same row, in turns;
+     ``gather``, ``scatter``, ``gather_shared`` and ``scatter_shared``,
+     ``segment`` on one FFT-64 wave, and a whole ALU, LOD, STO, GLD and
+     GST handler call beside the per-op composition of the same row, in
+     turns;
   6. prints the barriers the FFT-64 and QRD-16 plans place in their
      segments, the ``kernels`` JSON line, the device line and, last, the
      ``{"ok": true, ...}`` line.
@@ -392,6 +396,8 @@ def barrier_counts() -> dict:
 
 
 def check_gmem(rng, dev) -> tuple[int, int]:
+    """GLD and GST against their plain versions: the tile forms over
+    random lanes, then the row kernels (``check_gmem_rows``)."""
     import torch
     from repro_torch.kernels.simt_step import (
         gather_shared_plain, scatter_shared_plain, simt_gather_shared,
@@ -399,7 +405,8 @@ def check_gmem(rng, dev) -> tuple[int, int]:
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     worst_g = worst_s = 0
-    for n, gdepth, span in ((4, 12304, 12304), (4, 512, 37), (7, 4096, 3)):
+    for n, gdepth, span in ((4, 12304, 12304), (4, 512, 37), (7, 4096, 3),
+                            (4, 1 << 20, 1 << 20)):
         gmem = t(rng.integers(-2**31, 2**31, gdepth).astype(np.int32))
         addr = t(rng.integers(0, span, (n, 512)).astype(np.int32))
         mask = t(rng.random((n, 512)) < 0.7)
@@ -410,7 +417,59 @@ def check_gmem(rng, dev) -> tuple[int, int]:
         worst_s = max(worst_s, words_equal(
             "scatter_shared", simt_scatter_shared(gmem, addr, vals, mask),
             scatter_shared_plain(gmem, addr, vals, mask)))
-    return worst_g, worst_s
+    rows_g, rows_s = check_gmem_rows(rng, dev)
+    return max(worst_g, rows_g), max(worst_s, rows_s)
+
+
+def check_gmem_rows(rng, dev) -> tuple[int, int]:
+    """The GLD and GST row kernels against their plain row versions on the
+    same card state: fuzzed rows (guarded words, partial shapes,
+    addresses in and out of the image), half of them snooped with the
+    destination as their own address source, at the main path's wave (4
+    SMs, the SAXPY-4096 image of 12304 words), at 16 SMs with addresses
+    on 37 words (collisions across SMs), and at one SM over a 2**20-word
+    image, whose GST claims live in device memory."""
+    import torch
+    from repro_torch.core import SMConfig
+    from repro_torch.core.executor import FusedRow
+    from repro_torch.kernels import fuzz
+    from repro_torch.kernels.simt_step import (gld_row_plain, gst_row_plain,
+                                               simt_gld_row, simt_gst_row)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    worst = {8: 0, 9: 0}
+    for n, gdepth, span, n_rows in ((4, 12304, None, 200), (16, 4096, 37, 60),
+                                    (1, 1 << 20, None, 40)):
+        image = t(fuzz.random_f32_words(rng, (gdepth,)))
+        for fields in fuzz.random_rows(rng, n_rows, sels=(8, 9)):
+            if rng.random() < 0.5:           # x = 1, ra = rd, an ext_a
+                fields[7], fields[4] = 1, fields[3]
+                fields[8] = rng.integers(0, 32)
+            row = FusedRow.from_fields(fields)
+            n_threads = int(rng.choice([512, 200]))
+            cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
+            regs, _ = fuzz.random_state(rng, n, min(gdepth, 12304))
+            if gdepth > 12304:
+                regs[:, :, 0] = rng.integers(-8, gdepth + 8, (n, 512))
+            if span:
+                regs[:, :, 1] = rng.integers(0, span, (n, 512))
+            regs = t(regs)
+            oob = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+            if row.sel == 8:
+                got = simt_gld_row(cfg, row, regs.clone(), image,
+                                   oob.clone())
+                want = gld_row_plain(cfg, row, regs, image, oob)
+                parts = ("regs", "oob")
+            else:
+                got = simt_gst_row(cfg, row, regs, image.clone(),
+                                   oob.clone())
+                want = gst_row_plain(cfg, row, regs, image, oob)
+                parts = ("gmem", "oob")
+            for what, g, w in zip(parts, got, want):
+                worst[row.sel] = max(worst[row.sel], words_equal(
+                    f"{'GLD' if row.sel == 8 else 'GST'} row {what} "
+                    f"{fields.tolist()}", g, w))
+    return worst[8], worst[9]
 
 
 def check_per_op(rng, dev) -> dict[str, int]:
@@ -745,15 +804,20 @@ def main_path(rng):
               sm=SMConfig(max_steps=10_000))
     (z, res), got = on_card(lambda: launch_saxpy(
         2.5, x, y, device=DeviceConfig(**kw), block=512))
+    host_rows = counted_host_backend()
     _, res_c = launch_saxpy(2.5, x, y, device=DeviceConfig(
-        **kw, backend="cpu"), block=512)
+        **kw, backend=COUNTED_HOST), block=512)
     same_launch("saxpy4096", res, res_c)
     np.testing.assert_allclose(z, 2.5 * x + y, rtol=1e-6)
     assert res.grid == (8,) and res.halted and not bool(res.oob.any())
-    assert got["segment"] > 0 and got["gather_shared"] > 0 \
-        and got["scatter_shared"] > 0, got
-    per["saxpy4096"] = dict(launches=got, cycles=res.cycles,
-                            waves=res.n_waves)
+    assert got["segment"] > 0, got
+    # one GLD and GST launch per GLD and GST row the host executed
+    for k in ("gather_shared", "scatter_shared"):
+        if got[k] != host_rows[k] or not got[k]:
+            raise AssertionError(f"saxpy4096: {got[k]} {k} launches on the "
+                                 f"card for {host_rows[k]} rows")
+    per["saxpy4096"] = dict(launches=got, rows=dict(host_rows),
+                            cycles=res.cycles, waves=res.n_waves)
     return check_path("main-path", per), per
 
 
@@ -794,10 +858,11 @@ def step_path(rng):
 
     def both(name, fn, **kw):
         """``fn(DeviceConfig)`` on the card and on the host; the card must
-        launch ``alu``, ``gather`` and ``scatter`` once per ALU, LOD and
-        STO row the host executed."""
+        launch ``alu``, ``gather``, ``scatter``, ``gather_shared`` and
+        ``scatter_shared`` once per ALU, LOD, STO, GLD and GST row the
+        host executed."""
         (out, res), got = on_card(lambda: fn(DeviceConfig(n_sms=4, **kw)))
-        host_rows.update(alu=0, gather=0, scatter=0)
+        host_rows.update(dict.fromkeys(host_rows, 0))
         out_c, res_c = fn(DeviceConfig(n_sms=4, backend=COUNTED_HOST, **kw))
         same_launch(name, res, res_c)
         assert res.halted and not bool(res.oob.any()), name
@@ -861,9 +926,12 @@ def step_path(rng):
     return check_path("step-path", per), per, keep
 
 
-# the host's plain versions, counting the ALU, LOD and STO rows they
-# execute
+# the host's plain versions, counting the ALU, LOD, STO, GLD and GST rows
+# they execute
 COUNTED_HOST = "cpu-counted"
+# the row seam's entries and the kernels that run them on the card
+SEAM_KERNELS = {"alu_row": "alu", "lod_row": "gather", "sto_row": "scatter",
+                "gld_row": "gather_shared", "gst_row": "scatter_shared"}
 
 
 def counted_host_backend() -> dict[str, int]:
@@ -875,7 +943,7 @@ def counted_host_backend() -> dict[str, int]:
                                            register_backend)
 
     cpu = get_execute_backend("cpu")
-    rows = {"alu": 0, "gather": 0, "scatter": 0}
+    rows = dict.fromkeys(SEAM_KERNELS.values(), 0)
 
     def counted(name, fn):
         def row(*args):
@@ -884,23 +952,27 @@ def counted_host_backend() -> dict[str, int]:
         return row
 
     register_backend(dataclasses.replace(
-        cpu, name=COUNTED_HOST, alu_row=counted("alu", cpu.alu_row),
-        lod_row=counted("gather", cpu.lod_row),
-        sto_row=counted("scatter", cpu.sto_row)))
+        cpu, name=COUNTED_HOST,
+        **{seam: counted(k, getattr(cpu, seam))
+           for seam, k in SEAM_KERNELS.items()}))
     return rows
 
 
 def composed_handler(cfg, row):
-    """The per-op composition of an ALU, LOD or STO row, the handler body
-    the row seam replaced: the operand and destination columns, masks and
-    address arithmetic in PyTorch around the tile-form kernel, and a copy
-    of the register file for the ALU's and the LOD's result. The row
-    seam's yardstick."""
+    """The per-op composition of an ALU, LOD, STO, GLD or GST row, the
+    handler body the row seam replaced: the operand and destination
+    columns, masks and address arithmetic in PyTorch around the
+    tile-form kernel, and a copy of the register file for the ALU's, the
+    LOD's and the GLD's result (the GST's tile form copies the image). The
+    row seam's yardstick."""
     import torch
     from repro_torch.core.executor import row_eff, row_operand
     from repro_torch.kernels import ref
     from repro_torch.kernels.simt_alu import simt_alu
-    from repro_torch.kernels.simt_step import simt_gather, simt_scatter
+    from repro_torch.kernels.simt_step import (simt_gather,
+                                               simt_gather_shared,
+                                               simt_scatter,
+                                               simt_scatter_shared)
 
     d = row.d
 
@@ -939,7 +1011,32 @@ def composed_handler(cfg, row):
                              m & ~bad)
         return regs, shmem, gmem, oob | bad.any(dim=1)
 
-    return {1: h_alu, 2: h_lod, 3: h_sto}[row.sel]
+    def h_gld(s):
+        regs, shmem, gmem, oob = s
+        gdepth = gmem.shape[0]
+        m = row_eff(cfg.n_threads, row, regs)
+        addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                          .to(torch.int64) + d["imm"])
+        bad = m & ((addr < 0) | (addr >= gdepth))
+        vals = simt_gather_shared(gmem, addr.clamp(0, gdepth - 1),
+                                  m & ~bad, regs[:, :, d["rd"]].contiguous())
+        out = regs.clone()
+        out[:, :, d["rd"]] = vals
+        return out, shmem, gmem, oob | bad.any(dim=1)
+
+    def h_gst(s):
+        regs, shmem, gmem, oob = s
+        gdepth = gmem.shape[0]
+        m = row_eff(cfg.n_threads, row, regs)
+        addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
+                          .to(torch.int64) + d["imm"])
+        bad = m & ((addr < 0) | (addr >= gdepth))
+        gmem = simt_scatter_shared(gmem, addr,
+                                   regs[:, :, d["rd"]].contiguous(),
+                                   m & ~bad)
+        return regs, shmem, gmem, oob | bad.any(dim=1)
+
+    return {1: h_alu, 2: h_lod, 3: h_sto, 8: h_gld, 9: h_gst}[row.sel]
 
 
 def issue_counts(fn) -> dict:
@@ -979,41 +1076,59 @@ def issue_counts(fn) -> dict:
 
 
 def row_issue(engine: str) -> dict:
-    """The first ALU, LOD and STO rows of FFT-64 as ``engine`` ("step" or
-    "trace") dispatches them, through the execute stage on the card over a
-    wave of 4 SMs x 512 threads with a 3072-word shared memory: what each
-    row issues (``issue_counts``), and what the per-op composition of the
-    same row issues (``composed``). The row seam must be one launch and no
-    PyTorch operation."""
+    """The first ALU, LOD and STO rows of FFT-64 and the first GLD and GST
+    rows of SAXPY-4096 as ``engine`` ("step", "trace" or "megakernel",
+    whose handlers run only its global-port rows) dispatches them,
+    through the execute stage on the card over a wave of 4 SMs x 512
+    threads with a 3072-word shared memory and SAXPY-4096's 12304-word
+    global memory: what each row issues (``issue_counts``), and what the
+    per-op composition of the same row issues (``composed``). The row
+    seam must be one launch and no PyTorch operation."""
     import torch
-    from repro_torch.core import SMConfig, compile_program, device
+    from repro_torch.core import (SMConfig, compile_megakernel,
+                                  compile_program, device)
     from repro_torch.core.executor import (get_execute_backend,
                                            make_data_handlers, pack_imem)
     from repro_torch.core.programs.fft import fft_program
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
 
-    cfg = SMConfig(n_threads=32, dim_x=32, max_steps=200_000)
-    words = fft_program(64).words
-    if engine == "step":
-        issue = device._issue_table(cfg, *pack_imem(words, cfg.imem_depth))
-        rows = [issue(pc).row for pc in range(len(words))]
-    else:
-        rows = list(compile_program(words, cfg).rows)
+    def rows_of(words, cfg):
+        if engine == "step":
+            issue = device._issue_table(cfg, *pack_imem(words,
+                                                        cfg.imem_depth))
+            return [issue(pc).row for pc in range(len(words))]
+        if engine == "trace":
+            return list(compile_program(words, cfg).rows)
+        return [r for kind, r in compile_megakernel(words, cfg).items
+                if kind == "gmem"]
+
+    fft_cfg = SMConfig(n_threads=32, dim_x=32, max_steps=200_000)
+    saxpy_cfg = SMConfig(max_steps=10_000)
+    fft_rows = rows_of(fft_program(64).words, fft_cfg)
+    saxpy_rows = rows_of(saxpy_grid_program(4096, 512).words, saxpy_cfg)
     dev = torch.device("cuda")
     n = 4
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     state = (torch.zeros((n, 512, 16), dtype=torch.int32, device=dev),
              torch.zeros((n, 3072), dtype=torch.int32, device=dev),
-             torch.zeros((64,), dtype=torch.int32, device=dev),
+             torch.zeros((3 * 4096 + 16,), dtype=torch.int32, device=dev),
              torch.zeros((n,), dtype=torch.bool, device=dev))
     out = {}
-    for sel, name in ((1, "alu"), (2, "lod"), (3, "sto")):
+    for sel, name, cfg, rows in ((1, "alu", fft_cfg, fft_rows),
+                                 (2, "lod", fft_cfg, fft_rows),
+                                 (3, "sto", fft_cfg, fft_rows),
+                                 (8, "gld", saxpy_cfg, saxpy_rows),
+                                 (9, "gst", saxpy_cfg, saxpy_rows)):
+        if engine == "megakernel" and sel < 8:
+            continue
         row = next(r for r in rows if r.sel == sel)
         h = make_data_handlers(cfg, get_execute_backend("cuda"), row, idx,
                                idx)[sel]
         out[name] = issue_counts(lambda: h(state))
         out[name]["composed"] = issue_counts(
             lambda: composed_handler(cfg, row)(state))
-        if out[name]["wrapper_launches"] != 1 or out[name]["torch_ops"]:
+        if out[name]["wrapper_launches"] != 1 or out[name]["torch_ops"] \
+                or out[name]["cuda_kernels"] != 1:
             raise AssertionError(f"an {name} row on the {engine} engine "
                                  f"issued {out[name]}")
     return out
@@ -1343,48 +1458,128 @@ def time_segment(rng, dev, name: str, iters: int) -> dict:
 
 
 def time_kernels(rng, dev, iters: int = 200) -> dict[str, dict]:
-    import torch
-    from repro_torch.kernels.simt_step import (
-        gather_shared_plain, scatter_shared_plain, simt_gather_shared,
-        simt_scatter_shared)
-
-    n = 4
     # segment: one QRD-16 wave, the main path's longest run, and one
     # FFT-64 wave
     out = {"segment": time_segment(rng, dev, "qrd16", iters),
            "segment_fft64": time_segment(rng, dev, "fft64", iters)}
+    out.update(time_gmem_kernels(rng, dev, iters))
+    out.update(time_step_kernels(rng, dev, iters))
+    return out
 
-    # GLD/GST: one SAXPY-4096 wave of four 512-thread blocks
+
+def gmem_wave(rng, dev, n: int = 4) -> tuple:
+    """One SAXPY-4096 wave as its GLD and GST rows take it: ``n`` (four)
+    512-thread SMs with R1 the thread's element and random words
+    elsewhere, the 12304-word image of random words, and the rows ``GLD
+    R2, (R1)+0`` (x) and ``GST R6, (R1)+8192`` (z); at 16 SMs R1 runs past
+    the image and the last lanes set oob. Returns ``(cfg, gld, gst,
+    state)``, ``state`` the ``(regs, shmem, gmem, oob)`` tuple."""
+    import torch
+    from repro_torch.core import SMConfig
+    from repro_torch.core.executor import FIELDS, FusedRow
+
     nel = 4096
-    gdepth = 3 * nel + 16
-    gmem = torch.from_numpy(rng.standard_normal(gdepth).astype(
+    f32 = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(  # noqa: E731
         np.float32).view(np.int32)).to(dev)
-    gid = torch.arange(n * 512, dtype=torch.int32, device=dev).view(n, 512)
+
+    def row(sel, rd, imm):
+        f = dict(sel=sel, opcode={8: 24, 9: 25}[sel], typ=0, rd=rd, ra=1,
+                 rb=0, imm=imm, x=0, ext_a=0, ext_b=0, pen=0, preg=0,
+                 pneg=0, act_waves=32, act_wthreads=16)
+        return FusedRow.from_fields([f[k] for k in FIELDS])
+
+    regs = f32((n, 512, 16))
+    regs[:, :, 1] = torch.arange(n * 512, dtype=torch.int32,
+                                 device=dev).view(n, 512)
+    state = (regs, torch.zeros((n, 3072), dtype=torch.int32, device=dev),
+             f32((3 * nel + 16,)), torch.zeros(n, dtype=torch.bool,
+                                               device=dev))
+    return SMConfig(), row(8, 2, 0), row(9, 6, 2 * nel), state
+
+
+def time_gmem_kernels(rng, dev, iters: int) -> dict[str, dict]:
+    """GLD and GST on one SAXPY-4096 wave (``gmem_wave``):
+    ``gather_shared`` and ``scatter_shared`` are the row kernels every
+    engine launches; ``gld_row`` and ``gst_row`` time a whole handler
+    call of the execute stage beside the per-op composition of the same
+    row (``composed_handler``), in turns; ``gather_shared_tile`` and
+    ``scatter_shared_tile`` time the tile forms on the same lanes."""
+    import torch
+    from repro_torch.core.executor import (get_execute_backend,
+                                           make_data_handlers)
+    from repro_torch.kernels.simt_step import (
+        gather_shared_plain, gld_row_plain, gst_row_plain,
+        scatter_shared_plain, simt_gather_shared, simt_gld_row,
+        simt_gst_row, simt_scatter_shared)
+
+    cfg, gld, gst, state = gmem_wave(rng, dev)
+    regs, _, gmem, oob = state
+    n, gdepth = regs.shape[0], gmem.shape[0]
+    lanes, nel = n * 512, 4096
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    # bytes: the address column read and the destination column written
+    # (GLD) or the stored column read (GST), and one image word per lane
+    row_bytes = lanes * (4 + 4) + 4 * lanes
+    words_equal("gld row", simt_gld_row(cfg, gld, regs.clone(), gmem,
+                                        oob.clone())[0],
+                gld_row_plain(cfg, gld, regs, gmem, oob)[0])
+    words_equal("gst row", simt_gst_row(cfg, gst, regs, gmem.clone(),
+                                        oob.clone())[0],
+                gst_row_plain(cfg, gst, regs, gmem, oob)[0])
+    shape = f"{n} x 512 threads, a {gdepth}-word image"
+    out = {}
+    for name, op, kern, plain in (
+            ("gather_shared", "GLD",
+             lambda: simt_gld_row(cfg, gld, regs, gmem, oob),
+             lambda: gld_row_plain(cfg, gld, regs, gmem, oob)),
+            ("scatter_shared", "GST",
+             lambda: simt_gst_row(cfg, gst, regs, gmem, oob),
+             lambda: gst_row_plain(cfg, gst, regs, gmem, oob))):
+        out[name] = dict(
+            ms=cuda_time_ms(kern, iters), device_ms=cuda_device_ms(kern),
+            plain_ms=cuda_time_ms(plain, iters), bytes=row_bytes, ops=0,
+            shape=f"SAXPY-4096 {op} row in place: {shape}")
+    # a whole handler call beside the per-op composition, in turns
+    for name, r, k in (("gld_row", gld, "gather_shared"),
+                       ("gst_row", gst, "scatter_shared")):
+        h = make_data_handlers(cfg, get_execute_backend("cuda"), r, idx,
+                               idx)[r.sel]
+        p = composed_handler(cfg, r)
+        out[name] = dict(
+            ms=cuda_time_ms(lambda: h(state), iters),
+            composed_ms=cuda_time_ms(lambda: p(state), iters),
+            device_ms=cuda_device_ms(lambda: h(state)),
+            composed_device_ms=cuda_device_ms(lambda: p(state)),
+            ms_2=cuda_time_ms(lambda: h(state), iters),
+            composed_ms_2=cuda_time_ms(lambda: p(state), iters),
+            plain_ms=out[k]["plain_ms"], library_ms=None,
+            bytes=row_bytes, ops=0,
+            shape=f"a whole {name[:3].upper()} handler call, "
+                  f"{out[k]['shape']}")
+    # the tile forms, on the same lanes
     mask = torch.ones((n, 512), dtype=torch.bool, device=dev)
     old = torch.zeros((n, 512), dtype=torch.int32, device=dev)
-    addr_y = gid + nel
-    out["gather_shared"] = dict(
+    addr_y, addr_z = regs[:, :, 1] + nel, regs[:, :, 1] + 2 * nel
+    vals = regs[:, :, 6].contiguous()
+    out["gather_shared_tile"] = dict(
         ms=cuda_time_ms(lambda: simt_gather_shared(gmem, addr_y, mask, old),
                         iters),
         device_ms=cuda_device_ms(
             lambda: simt_gather_shared(gmem, addr_y, mask, old)),
         plain_ms=cuda_time_ms(
             lambda: gather_shared_plain(gmem, addr_y, mask, old), iters),
-        bytes=n * 512 * (4 + 1 + 4 + 4 + 4), ops=0,
-        shape=f"SAXPY-4096 GLD: {n} x 512 lanes, {gdepth}-word image")
-    addr_z = gid + 2 * nel
-    vals = torch.from_numpy(rng.standard_normal((n, 512)).astype(
-        np.float32).view(np.int32)).to(dev)
-    out["scatter_shared"] = dict(
+        library_ms=None, bytes=lanes * (4 + 1 + 4 + 4 + 4), ops=0,
+        shape=f"tile GLD: {n} x 512 lanes, a {gdepth}-word image")
+    out["scatter_shared_tile"] = dict(
         ms=cuda_time_ms(lambda: simt_scatter_shared(gmem, addr_z, vals, mask),
                         iters),
         device_ms=cuda_device_ms(
             lambda: simt_scatter_shared(gmem, addr_z, vals, mask)),
         plain_ms=cuda_time_ms(
             lambda: scatter_shared_plain(gmem, addr_z, vals, mask), iters),
-        bytes=2 * gdepth * 4 + n * 512 * (4 + 4 + 1), ops=0,
-        shape=f"SAXPY-4096 GST: {n} x 512 lanes, {gdepth}-word image")
-    out.update(time_step_kernels(rng, dev, iters))
+        library_ms=None, bytes=2 * gdepth * 4 + lanes * (4 + 4 + 1), ops=0,
+        shape=f"tile GST (the image copied): {n} x 512 lanes, a "
+              f"{gdepth}-word image")
     return out
 
 
@@ -1675,6 +1870,7 @@ def main() -> int:
     paths["step-path"] = (counts, per)
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
     per_row = phases.run("row-issue", lambda: {
+        "main-path": row_issue("megakernel"),
         "step-path": row_issue("step"), "trace-path": row_issue("trace")})
     counts, per, path_flash_err = phases.run(
         "kernel-path", lambda: kernel_path(rng))

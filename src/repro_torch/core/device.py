@@ -240,6 +240,13 @@ def _issue_table(cfg: SMConfig, imem_lo, imem_hi) -> list:
     return issue
 
 
+def _stores_gmem(imem_lo, imem_hi) -> bool:
+    """Whether the packed I-MEM holds a GST word, the one instruction that
+    writes the global-memory image."""
+    op = _decode(np.asarray(imem_lo), np.asarray(imem_hi))["opcode"]
+    return bool((_GROUP_OF_OP[op] == _G_GST).any())
+
+
 def _issue_cycles(it: _Issue, n_sms: int) -> int:
     """Sequencer cycles of one issue. Per-SM resources (ALU, shared
     memory, extension units) run concurrently across the lockstep batch;
@@ -269,14 +276,16 @@ def run_wave(cfg: SMConfig, backend: ExecBackend, imem_lo, imem_hi,
     integers, and each data instruction is dispatched into
     ``executor.make_data_handlers`` on the state's device. The host never
     reads the card inside the loop. The wave runs on its own copy of the
-    data state (``trace_engine.owned_data``): ``state`` is not written."""
+    data state (``trace_engine.owned_data``; the image only where the
+    I-MEM holds a GST word): ``state`` is not written."""
     device = state.regs.device
     n_sms = state.regs.shape[0]
     bidx = trace_engine._wave_index(block_idx, device)
     pidx = trace_engine._wave_index(prog_idx, device)
     issue = _issue_table(cfg, imem_lo, imem_hi)
     handlers: dict[int, Any] = {}
-    data = trace_engine.owned_data(state)
+    data = trace_engine.owned_data(
+        state, gmem=_stores_gmem(imem_lo, imem_hi))
     pc, ret_sp, loop_sp = state.pc, state.ret_sp, state.loop_sp
     ret_stack = [int(v) for v in state.ret_stack]
     loop_ctr = [int(v) for v in state.loop_ctr]
@@ -744,6 +753,10 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
                                       packing=wp).makespan
 
     # ---- global-memory image --------------------------------------------
+    # packed into a tensor of the launch's own (``pack_buffers`` and
+    # ``as_u32_image`` copy), so no wave writes a tensor the caller passed;
+    # each wave with a GST row copies it once more and the next wave
+    # starts from that wave's image
     offsets = None
     if buffers is not None:
         if gmem is not None:

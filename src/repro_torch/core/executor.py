@@ -26,8 +26,9 @@ This module holds the execute stage of every engine:
   * ``exec_segment`` — a fused run through the segment kernel;
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
     kernels) and ``"cpu"`` (tensors on the host, their plain versions),
-    each with the seam ``alu_row``/``lod_row``/``sto_row`` (a whole row,
-    on the card one launch in place) and ``gld``/``gst`` (one port op);
+    each with the row seam ``alu_row``/``lod_row``/``sto_row``/
+    ``gld_row``/``gst_row`` (a whole row, on the card one launch in
+    place);
   * ``make_data_handlers`` — the 12-way data path of one decoded
     instruction, which the step and trace engines run row by row and the
     megakernel runs for its global-port rows;
@@ -361,21 +362,23 @@ def _last_writer_write(mem, addr, vals, do):
 @dataclasses.dataclass(frozen=True)
 class ExecBackend:
     """One named execute backend: the device the launch keeps its state
-    on, and the seam the step and trace engines dispatch into. ALU, LOD
-    and STO rows go whole: ``alu_row(cfg, row, regs)`` returns the new
-    register file, ``lod_row(cfg, row, regs, shmem, oob, depth)`` the new
-    ``(regs, oob)`` and ``sto_row(cfg, row, regs, shmem, oob, depth)`` the
-    new ``(shmem, oob)``; each may write the tensors it is given in place,
-    so the engines hand it state they own. The global ports are per op:
-    ``gld(gmem, addr, mask, old)`` and ``gst(gmem, addr, vals, do)``."""
+    on, and the row seam the engines dispatch into (the step and trace
+    engines every ALU, LOD, STO, GLD and GST row; the megakernel its GLD
+    and GST rows). Each row goes whole: ``alu_row(cfg, row, regs)``
+    returns the new register file, ``lod_row(cfg, row, regs, shmem, oob,
+    depth)`` and ``gld_row(cfg, row, regs, gmem, oob)`` the new ``(regs,
+    oob)``, ``sto_row(cfg, row, regs, shmem, oob, depth)`` the new
+    ``(shmem, oob)`` and ``gst_row(cfg, row, regs, gmem, oob)`` the new
+    ``(gmem, oob)``. Each may write the tensors it is given in place, so
+    the engines hand it state they own (``trace_engine.owned_data``)."""
 
     name: str
     device: str
     alu_row: Callable
     lod_row: Callable
     sto_row: Callable
-    gld: Callable
-    gst: Callable
+    gld_row: Callable
+    gst_row: Callable
 
 
 _EXECUTE_BACKENDS: dict[str, ExecBackend] = {}
@@ -410,16 +413,16 @@ def backend_device(name: str) -> torch.device:
     return torch.device(dev)
 
 
-# the card: the five kernels (ALU, LOD and STO rows in place); the host:
-# their plain versions (out of place)
+# the card: the five row kernels, in place; the host: their plain
+# versions, out of place
 register_backend(ExecBackend(
     name="cuda", device="cuda", alu_row=simt_alu.simt_alu_row,
     lod_row=simt_step.simt_lod_row, sto_row=simt_step.simt_sto_row,
-    gld=simt_step.simt_gather_shared, gst=simt_step.simt_scatter_shared))
+    gld_row=simt_step.simt_gld_row, gst_row=simt_step.simt_gst_row))
 register_backend(ExecBackend(
     name="cpu", device="cpu", alu_row=simt_alu.alu_row_plain,
     lod_row=simt_step.lod_row_plain, sto_row=simt_step.sto_row_plain,
-    gld=simt_step.gather_shared_plain, gst=simt_step.scatter_shared_plain))
+    gld_row=simt_step.gld_row_plain, gst_row=simt_step.gst_row_plain))
 
 
 # ---------------------------------------------------------------------------
@@ -500,11 +503,14 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     and trace engines take. The megakernel's fused segment keeps its own
     order (``ref.wavefront_reduce``'s ``pairwise`` argument, ROADMAP §C).
 
-    An ALU, LOD or STO row is one call into the backend's row seam and
-    issues no PyTorch operation of its own; on the card that call is one
-    launch that writes the state in place, so the state handed to these
-    handlers must be the engine's own (``device.run_wave`` and
-    ``trace_engine.run_wave_trace`` copy it once per wave).
+    An ALU, LOD, STO, GLD or GST row is one call into the backend's row
+    seam and issues no PyTorch operation of its own; on the card that
+    call is one launch that writes the state in place, so the state
+    handed to these handlers must be the engine's own (``device.run_wave``
+    and ``trace_engine.run_wave_trace`` copy it once per wave,
+    ``gmem`` only where the wave's rows store into it, and
+    ``trace_engine.run_wave_megakernel`` what its GLD and GST rows
+    write).
 
     ``shmem_depth`` bounds LOD/STO addressing (default: the shared-memory
     array's own depth)."""
@@ -534,10 +540,6 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
     def operands(regs):
         return (row_operand(row, regs, ra, d["ext_a"]),
                 row_operand(row, regs, rb, d["ext_b"]))
-
-    def addr_of(regs):
-        return ref.wrap32(row_operand(row, regs, ra, d["ext_a"])
-                          .to(torch.int64) + imm)
 
     def h_identity(s):
         return s
@@ -613,23 +615,14 @@ def make_data_handlers(cfg, backend: ExecBackend, row: FusedRow, block_idx,
 
     def h_gld(s):
         regs, shmem, gmem, oob = s
-        gdepth = gmem.shape[0]
-        m = eff(regs)
-        addr = addr_of(regs)
-        bad = m & ((addr < 0) | (addr >= gdepth))
-        vals = backend.gld(gmem, addr.clamp(0, gdepth - 1), m & ~bad,
-                           col(regs, rd))
-        return set_col(regs, rd, vals), shmem, gmem, oob | bad.any(dim=1)
+        regs, oob = backend.gld_row(cfg, row, regs, gmem, oob)
+        return regs, shmem, gmem, oob
 
     def h_gst(s):
-        regs, shmem, gmem, oob = s
-        gdepth = gmem.shape[0]
-        m = eff(regs)
-        addr = addr_of(regs)
-        bad = m & ((addr < 0) | (addr >= gdepth))
         # the single device-wide port drains in (sm, thread) order
-        gmem = backend.gst(gmem, addr, col(regs, rd), m & ~bad)
-        return regs, shmem, gmem, oob | bad.any(dim=1)
+        regs, shmem, gmem, oob = s
+        gmem, oob = backend.gst_row(cfg, row, regs, gmem, oob)
+        return regs, shmem, gmem, oob
 
     def h_setp(s):
         regs, shmem, gmem, oob = s

@@ -17,8 +17,8 @@ The megakernel engine splits that schedule at the global-port rows
 (GLD/GST serialize on the one device-wide port): each maximal run of
 SM-local rows between them is a fused segment that runs as ONE launch of
 the segment kernel with the wave's registers and shared memory resident
-on chip; each global-port row runs by itself through the gather/scatter
-kernels. The plan places each segment's barriers once
+on chip; each global-port row runs by itself through the GLD/GST row
+seam, one launch in place. The plan places each segment's barriers once
 (``kernels.simt_step.segment_barriers``); its packed row table and the
 barrier bits are uploaded to a device once and kept with the plan.
 
@@ -50,6 +50,10 @@ from .machine import SMConfig
 from ..kernels.simt_step import segment_barriers
 
 ENGINES = ("step", "trace", "megakernel")
+
+# the global port's data-switch branches (GLD/GST serialize on the one
+# device-wide port)
+_GLD_SEL, _GST_SEL = 8, 9
 
 # "auto" only picks the megakernel engine for programs whose schedules it
 # can unroll body-to-body; longer schedules fall back to the scanned trace
@@ -87,6 +91,12 @@ class TraceSchedule:
     @property
     def halted(self) -> bool:
         return self.trace.halted
+
+    @property
+    def stores_gmem(self) -> bool:
+        """Whether a row of the schedule is a GST, the one row that writes
+        the global-memory image."""
+        return bool((self.cols["sel"] == _GST_SEL).any())
 
     @property
     def table(self) -> np.ndarray:
@@ -156,16 +166,19 @@ def _wave_index(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
 
 
-def owned_data(state) -> tuple:
-    """A wave's data state ``(regs, shmem, gmem, oob)`` for the step and
-    trace engines: the three tensors the ALU and STO row kernels write in
-    place are copied once (contiguous), so a wave never writes a caller's
-    tensors or the numpy arrays they may share. ``gmem`` is never written
-    in place and passes through."""
-    def own(t):
-        return t.clone(memory_format=torch.contiguous_format)
+def _own(t: torch.Tensor) -> torch.Tensor:
+    return t.clone(memory_format=torch.contiguous_format)
 
-    return own(state.regs), own(state.shmem), state.gmem, own(state.oob)
+
+def owned_data(state, gmem: bool = True) -> tuple:
+    """A wave's data state ``(regs, shmem, gmem, oob)`` for the step and
+    trace engines: the tensors the row kernels write in place are copied
+    once (contiguous), so a wave never writes a caller's tensors or the
+    numpy arrays they may share. The image ``gmem`` is copied only where
+    the wave's rows may store into it (``gmem=True``); a wave without a
+    GST row reads the caller's image and passes it through."""
+    image = _own(state.gmem) if gmem else state.gmem
+    return _own(state.regs), _own(state.shmem), image, _own(state.oob)
 
 
 def _static_counters(state, trace: ProgramTrace, by_class: np.ndarray):
@@ -189,7 +202,7 @@ def run_wave_trace(cfg: SMConfig, backend: ExecBackend,
     device = state.regs.device
     bidx = _wave_index(block_idx, device)
     pidx = _wave_index(prog_idx, device)
-    s = owned_data(state)
+    s = owned_data(state, gmem=sched.stores_gmem)
     for row in sched.rows:
         s = make_data_handlers(cfg, backend, row, bidx, pidx)[row.sel](s)
     regs, shmem, gmem, oob = s
@@ -203,7 +216,7 @@ def run_wave_trace(cfg: SMConfig, backend: ExecBackend,
 # segment megakernels: fused runs between global-port accesses
 # ---------------------------------------------------------------------------
 
-_GMEM_SELS = (8, 9)        # GLD/GST data-switch branches (the global port)
+_GMEM_SELS = (_GLD_SEL, _GST_SEL)
 
 
 def _segment_items(rows) -> tuple:
@@ -289,8 +302,15 @@ def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
 def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
                         block_idx, prog_idx, state):
     """Run one homogeneous wave: fused segments through the segment
-    kernel, global-port rows through ``backend``'s gather/scatter, on the
-    device the state lives on. Counters come from the static trace."""
+    kernel, global-port rows through ``backend``'s GLD and GST row seam,
+    on the device the state lives on. Counters come from the static
+    trace.
+
+    ``state`` is not written. A segment returns new tensors; a GLD row
+    writes ``regs`` and ``oob`` in place and a GST row ``gmem`` and
+    ``oob``, so the wave copies the image once if it holds a GST row, and
+    ``regs`` and ``oob`` once if a global-port row comes before its first
+    segment."""
     n = state.regs.shape[0]
     device = state.regs.device
     table = plan.device_table(device)
@@ -298,6 +318,10 @@ def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
     bidx = _wave_index(block_idx, device)
     pidx = _wave_index(prog_idx, device)
     regs, shmem, gmem, oob = state.regs, state.shmem, state.gmem, state.oob
+    if plan.items and plan.items[0][0] == "gmem":
+        regs, oob = _own(regs), _own(oob)
+    if plan.sched.stores_gmem:
+        gmem = _own(gmem)
     for kind, payload in plan.items:
         if kind == "fused":
             start, stop = payload

@@ -28,8 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-HEADERS = ("egpu_fp32.cuh", "egpu_row.cuh", "egpu_smem.cuh",
-           "hopper_ptx.cuh")
+HEADERS = ("egpu_fp32.cuh", "egpu_load_row.cuh", "egpu_row.cuh",
+           "egpu_smem.cuh", "hopper_ptx.cuh")
 # a block may use at most 227 KiB of shared memory on Hopper
 MAX_DYNAMIC_SMEM = 232_448
 
@@ -43,6 +43,8 @@ _ENTRY_POINTS = {
                                  _P, _P, _I, _I, _I, _I, _I, _P)),
     "egpu_gather_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
     "egpu_scatter_shared": ("gmem", (_P, _I, _P, _P, _P, _P, _I, _P)),
+    "egpu_gld_row": ("gmem", _ROW + (_P, _P, _P, _I, _I, _P)),
+    "egpu_gst_row": ("gmem", _ROW + (_P, _P, _P, _I, _I, _P, _P)),
     "egpu_alu": ("alu", (_I, _I, _P, _P, _P, _P, _P, _I, _P)),
     "egpu_alu_row": ("alu", _ROW + (_P, _I, _P)),
     "egpu_gather": ("smem", (_P, _I, _P, _P, _P, _P, _I, _I, _P)),

@@ -39,4 +39,13 @@ __device__ __forceinline__ int row_source(const Row& f, int ext, int t) {
   return f.x == 1 ? ext * kSP + t % kSP : t;
 }
 
+// Thread t's port address (LOD, STO, GLD, GST): the low 32 bits of its
+// sign-extended address operand ra, snooped as the row's, plus imm
+// (ref.wrap32).
+__device__ __forceinline__ int row_address(const Row& f, const uint32_t* r,
+                                           int t) {
+  return static_cast<int>(r[row_source(f, f.ext_a, t) * kRegs + f.ra]
+                          + static_cast<uint32_t>(f.imm));
+}
+
 }  // namespace egpu

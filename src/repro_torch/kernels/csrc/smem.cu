@@ -16,7 +16,8 @@
 //   * egpu_lod_row: the loaded word, or regs[t][rd] for a disabled or
 //     out-of-range lane, is written to regs[s][t][rd] in place after a
 //     barrier: with snooping the address is another thread's register,
-//     and rd may be that register or preg.
+//     and rd may be that register or preg (egpu_load_row.cuh, the kernel
+//     GLD shares with a device-wide image).
 //   * egpu_sto_row: the stored word is regs[t][rd]; shmem is written in
 //     place.
 // The tile forms keep their tests and the kernel table's timing rows:
@@ -39,6 +40,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "egpu_load_row.cuh"
 #include "egpu_row.cuh"
 #include "egpu_smem.cuh"
 
@@ -55,29 +57,6 @@ __global__ void gather_kernel(const uint32_t* __restrict__ mem, int depth,
   if (i >= n) return;
   const size_t sm = static_cast<size_t>(i / k);
   out[i] = mask[i] ? mem[sm * depth + addr[i]] : old[i];
-}
-
-// One LOD row, 512 threads per SM, regs and oob in place.
-__global__ void __launch_bounds__(egpu::kRowThreads)
-lod_row_kernel(egpu::Row f, uint32_t* __restrict__ regs,
-               const uint32_t* __restrict__ shmem, uint8_t* __restrict__ oob,
-               int depth, int bound, int n_threads) {
-  uint32_t* r =
-      regs + static_cast<size_t>(blockIdx.x) * egpu::kRowThreads * egpu::kRegs;
-  const int t = threadIdx.x;
-  uint32_t v = r[t * egpu::kRegs + f.rd];
-  if (egpu::row_enabled(f, r, t, n_threads)) {
-    // the low 32 bits of the sign-extended word plus imm (ref.wrap32)
-    const int a = static_cast<int>(
-        r[egpu::row_source(f, f.ext_a, t) * egpu::kRegs + f.ra]
-        + static_cast<uint32_t>(f.imm));
-    if (a < 0 || a >= bound)
-      oob[blockIdx.x] = 1;
-    else
-      v = shmem[static_cast<size_t>(blockIdx.x) * depth + a];
-  }
-  __syncthreads();
-  r[t * egpu::kRegs + f.rd] = v;
 }
 
 // The shared body: the policy loads thread t's enable, address and word;
@@ -131,9 +110,7 @@ struct RowIo {
     en = egpu::row_enabled(f, r, t, n_threads);
     a = 0;
     if (en) {
-      // the low 32 bits of the sign-extended word plus imm (ref.wrap32)
-      a = static_cast<int>(r[egpu::row_source(f, f.ext_a, t) * egpu::kRegs + f.ra]
-                           + static_cast<uint32_t>(f.imm));
+      a = egpu::row_address(f, r, t);
       if (a < 0 || a >= bound) {
         oob[blockIdx.x] = 1;
         en = false;
@@ -215,9 +192,7 @@ extern "C" int egpu_lod_row(int sel, int opcode, int typ, int rd, int ra,
                             int depth, int bound, void* stream) {
   const egpu::Row f{sel, opcode, typ, rd, ra, rb, imm, x, ext_a, ext_b,
                     pen, preg, pneg, act_waves, act_wthreads};
-  lod_row_kernel<<<n_sms, egpu::kRowThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      f, reinterpret_cast<uint32_t*>(regs),
-      reinterpret_cast<const uint32_t*>(shmem), oob, depth, bound, n_threads);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_load_row(
+      f, n_threads, regs, shmem, oob, n_sms, static_cast<size_t>(depth),
+      bound, static_cast<cudaStream_t>(stream)));
 }

@@ -1,8 +1,10 @@
 """Seeded random row tables and machine states that exercise every
 SM-local handler: address collisions, masked and out-of-range lanes,
 snooped operands, guarded rows, NaN, infinite and denormal FP32 words,
-and INVSQR. The CPU tests and the chip smoke both draw from here, so the
-kernels and their plain versions are held against the same inputs."""
+and INVSQR; and, where asked for by ``sels``, GLD and GST rows of the
+global port. The CPU tests and the chip smoke both draw from here, so
+the kernels and their plain versions are held against the same
+inputs."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,7 +30,15 @@ _OPS_OF_SEL = {
     5: [int(o) for o in (Op.TDX, Op.TDY, Op.BID, Op.PID)],
     6: [int(Op.DOT), int(Op.SUM)], 7: [int(Op.INVSQR)],
     10: [int(Op.SETP)], 11: [int(Op.SELP)],
+    8: [int(Op.GLD)], 9: [int(Op.GST)],
 }
+# the branches a fused segment may hold, the default draw: GLD (8) and
+# GST (9) are drawn only where ``sels`` names them, since a segment's
+# tables must stay SM-local
+SM_LOCAL_SELS = (1, 2, 3, 4, 5, 6, 7, 10, 11)
+# the load and store ports, whose address operand is one of the address
+# registers
+_PORT_SELS = (2, 3, 8, 9)
 
 
 def random_f32_words(rng: np.random.Generator, shape) -> np.ndarray:
@@ -93,7 +103,7 @@ def _draw_row(rng: np.random.Generator, sels, depth_table) -> dict:
              imm=0, x=0, ext_a=0, ext_b=0, pen=0, preg=0, pneg=0,
              act_waves=int(rng.choice(depth_table)),
              act_wthreads=int(rng.choice([16, 8, 4, 1])))
-    if sel in (2, 3):
+    if sel in _PORT_SELS:
         f["ra"] = int(rng.choice(list(_ADDR_REGS)))
         f["imm"] = int(rng.integers(-16, 17))
     elif sel == 4:
@@ -183,10 +193,11 @@ def _hazards(rng: np.random.Generator, f: dict, sels, n_waves: int
 
 
 def random_rows(rng: np.random.Generator, n_rows: int, *,
-                sels=tuple(_OPS_OF_SEL), n_threads: int = MAX_THREADS,
+                sels=SM_LOCAL_SELS, n_threads: int = MAX_THREADS,
                 hazards: bool = False) -> np.ndarray:
-    """A (n_rows, 15) int32 table of SM-local rows in ``FIELDS`` order,
-    drawn from the data-switch branches ``sels``. ``hazards`` makes the
+    """A (n_rows, 15) int32 table of rows in ``FIELDS`` order, drawn from
+    the data-switch branches ``sels`` (the SM-local ones by default; GLD
+    and GST rows only where ``sels`` holds 8 or 9). ``hazards`` makes the
     table dense in accesses of one thread to another's words (see
     ``_hazards``), the races the segment kernel's barriers must order."""
     n_waves = max(1, (n_threads + 15) // 16)

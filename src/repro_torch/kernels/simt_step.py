@@ -21,11 +21,22 @@
     the whole run, with barriers only where ``segment_barriers`` places
     them (CUDA: ``csrc/segment.cu``; plain:
     ``core.executor.apply_segment_rows``);
-  * ``simt_gather_shared``  — GLD: every SM's lanes gather from the one
-    device-wide global-memory image (CUDA: ``csrc/gmem.cu``);
-  * ``simt_scatter_shared`` — GST: the single device-wide port drains in
-    (sm, thread) order, the last enabled writer to an address wins
-    (CUDA: ``csrc/gmem.cu``).
+  * ``simt_gld_row``        — one GLD data row of the step, trace and
+    megakernel engines: every SM's lanes load from the one device-wide
+    global-memory image, as it was at the start of the row; the LOD row
+    kernel with an SM stride of 0, ``rd`` and the oob flags written in
+    place, one launch per row (CUDA: ``csrc/gmem.cu``; plain:
+    ``gld_row_plain``, out of place);
+  * ``simt_gather_shared``  — the same read port over pre-computed
+    addresses, enables and old words (tile form);
+  * ``simt_gst_row``        — one GST data row of every engine: the single
+    device-wide port drains in (sm, thread) order, so across the whole
+    wave the last enabled writer to an address wins; the stored word is
+    the thread's own ``rd``; the image and the oob flags are written in
+    place, one launch of one CTA per row (CUDA: ``csrc/gmem.cu``; plain:
+    ``gst_row_plain``, out of place);
+  * ``simt_scatter_shared`` — the same write port over pre-computed
+    addresses, values and enables (tile form, on the same kernel body).
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the host. For tensors on the card it launches its kernel (on the
@@ -209,23 +220,33 @@ def scatter_plain(mem, addr, vals, do):
     return _last_writer_write(mem, addr, vals, do)
 
 
+def port_lanes(cfg, row, regs, depth: int):
+    """The lanes of an LOD, STO, GLD or GST row (``row`` a
+    ``core.executor.FusedRow``) over ``regs`` (n, 512, 16): each thread's
+    address ``wrap32(operand + imm)`` (int32, operand ``ra`` snooped as
+    the row's), the enabled threads whose address lies in ``[0, depth)``
+    and the enabled ones outside it, which touch no word and set their
+    SM's oob flag. Returns ``(addr, ok, bad)``."""
+    from ..core.executor import row_eff, row_operand
+
+    m = row_eff(cfg.n_threads, row, regs)
+    addr = ref.wrap32(row_operand(row, regs, row.d["ra"], row.d["ext_a"])
+                      .to(torch.int64) + row.d["imm"])
+    bad = m & ((addr < 0) | (addr >= depth))
+    return addr, m & ~bad, bad
+
+
 def lod_row_plain(cfg, row, regs, shmem, oob, depth: int):
     """One LOD row (``row`` a ``core.executor.FusedRow``) over ``regs``
     (n, 512, 16), ``shmem`` (n, width) int32 and ``oob`` (n,) bool:
     enabled threads load ``shmem[s, wrap32(operand + imm)]`` into
     ``rd``; one outside ``[0, depth)`` keeps ``rd`` and sets its SM's
     ``oob``. Nothing is modified; returns the new ``(regs, oob)``."""
-    from ..core.executor import row_eff, row_operand
-
-    d = row.d
-    m = row_eff(cfg.n_threads, row, regs)
-    addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
-                      .to(torch.int64) + d["imm"])
-    bad = m & ((addr < 0) | (addr >= depth))
+    rd = row.d["rd"]
+    addr, ok, bad = port_lanes(cfg, row, regs, depth)
     out = regs.clone()
-    out[:, :, d["rd"]] = gather_plain(shmem, addr.clamp(0, depth - 1),
-                                      m & ~bad,
-                                      regs[:, :, d["rd"]].contiguous())
+    out[:, :, rd] = gather_plain(shmem, addr.clamp(0, depth - 1), ok,
+                                 regs[:, :, rd].contiguous())
     return out, oob | bad.any(dim=1)
 
 
@@ -235,15 +256,9 @@ def sto_row_plain(cfg, row, regs, shmem, oob, depth: int):
     enabled threads store ``regs[s, t, rd]`` at ``wrap32(operand + imm)``;
     one outside ``[0, depth)`` stores nothing and sets its SM's ``oob``.
     Nothing is modified; returns the new ``(shmem, oob)``."""
-    from ..core.executor import row_eff, row_operand
-
-    d = row.d
-    m = row_eff(cfg.n_threads, row, regs)
-    addr = ref.wrap32(row_operand(row, regs, d["ra"], d["ext_a"])
-                      .to(torch.int64) + d["imm"])
-    bad = m & ((addr < 0) | (addr >= depth))
-    return (scatter_plain(shmem, addr, regs[:, :, d["rd"]].contiguous(),
-                          m & ~bad), oob | bad.any(dim=1))
+    addr, ok, bad = port_lanes(cfg, row, regs, depth)
+    return (scatter_plain(shmem, addr, regs[:, :, row.d["rd"]].contiguous(),
+                          ok), oob | bad.any(dim=1))
 
 
 def scatter_smem_bytes(depth: int) -> int:
@@ -378,8 +393,37 @@ def simt_sto_row(cfg, row, regs, shmem, oob, depth: int):
 
 
 # ---------------------------------------------------------------------------
-# the device-wide global-memory port
+# the device-wide global-memory port (GLD/GST rows of every engine)
 # ---------------------------------------------------------------------------
+
+# (device index, stream handle) -> the GST port's scratch in device memory
+_gst_scratch: dict = {}
+
+
+def gst_scratch_words(gdepth: int, lanes: int) -> int:
+    """Words of the GST port's scratch: a claim per image word (from an
+    even count) and an 8-byte record per lane (``csrc/gmem.cu``)."""
+    return gdepth + gdepth % 2 + 2 * lanes
+
+
+def gst_scratch(gmem, lanes: int) -> int:
+    """The GST kernel's scratch argument for the image ``gmem`` and
+    ``lanes`` lanes: 0 where the scratch fits one CTA's shared memory
+    (``MAX_DYNAMIC_SMEM``), else the address of an int32 array of
+    ``gst_scratch_words`` words on the image's device, kept per device
+    and stream and grown, never cleared: the kernel clears each claim it
+    takes before taking it and writes each lane record before reading
+    it."""
+    words = gst_scratch_words(gmem.shape[0], lanes)
+    if 4 * words <= MAX_DYNAMIC_SMEM:
+        return 0
+    key = (gmem.device.index, build.current_stream(gmem.device))
+    buf = _gst_scratch.get(key)
+    if buf is None or buf.shape[0] < words:
+        buf = _gst_scratch[key] = torch.empty(
+            (words,), dtype=torch.int32, device=gmem.device)
+    return buf.data_ptr()
+
 
 def gather_shared_plain(gmem, addr, mask, old):
     """GLD: ``out[s, t] = gmem[addr[s, t]]`` where ``mask``, else ``old``
@@ -396,8 +440,35 @@ def scatter_shared_plain(gmem, addr, vals, do):
                               vals.reshape(1, -1), do.reshape(1, -1))[0]
 
 
+def gld_row_plain(cfg, row, regs, gmem, oob):
+    """One GLD row (``row`` a ``core.executor.FusedRow``) over ``regs``
+    (n, 512, 16) int32, the image ``gmem`` (gdepth,) int32 and ``oob``
+    (n,) bool: enabled threads load ``gmem[wrap32(operand + imm)]`` into
+    ``rd``; one outside ``[0, gdepth)`` keeps ``rd`` and sets its SM's
+    ``oob``. Nothing is modified; returns the new ``(regs, oob)``."""
+    rd, gdepth = row.d["rd"], gmem.shape[0]
+    addr, ok, bad = port_lanes(cfg, row, regs, gdepth)
+    out = regs.clone()
+    out[:, :, rd] = gather_shared_plain(gmem, addr.clamp(0, gdepth - 1), ok,
+                                        regs[:, :, rd].contiguous())
+    return out, oob | bad.any(dim=1)
+
+
+def gst_row_plain(cfg, row, regs, gmem, oob):
+    """One GST row (``row`` a ``core.executor.FusedRow``) over ``regs``
+    (n, 512, 16) int32, the image ``gmem`` (gdepth,) int32 and ``oob``
+    (n,) bool: enabled threads store ``regs[s, t, rd]`` at
+    ``wrap32(operand + imm)``, the last in (sm, thread) order winning an
+    address; one outside ``[0, gdepth)`` stores nothing and sets its SM's
+    ``oob``. Nothing is modified; returns the new ``(gmem, oob)``."""
+    addr, ok, bad = port_lanes(cfg, row, regs, gmem.shape[0])
+    return (scatter_shared_plain(gmem, addr,
+                                 regs[:, :, row.d["rd"]].contiguous(), ok),
+            oob | bad.any(dim=1))
+
+
 def check_gather_shared_args(gmem, addr, mask, old) -> None:
-    """Raise unless the GLD kernel takes these tensors as they are."""
+    """Raise unless the GLD tile kernel takes these tensors as they are."""
     dev = gmem.device
     check_tensor(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
     for t, name, dt in ((addr, "addr", torch.int32),
@@ -406,12 +477,40 @@ def check_gather_shared_args(gmem, addr, mask, old) -> None:
 
 
 def check_scatter_shared_args(gmem, addr, vals, do) -> None:
-    """Raise unless the GST kernel takes these tensors as they are."""
+    """Raise unless the GST tile kernel takes these tensors as they are."""
     dev = gmem.device
     check_tensor(gmem, "gmem", torch.int32, (gmem.shape[0],), dev)
     for t, name, dt in ((addr, "addr", torch.int32),
                         (vals, "vals", torch.int32), (do, "do", torch.bool)):
         check_tensor(t, name, dt, vals.shape, dev)
+
+
+def _check_gmem_row_args(row, sel: int, name: str, regs, gmem,
+                         oob) -> tuple:
+    """Raise unless the ``name`` row kernel (data-switch branch ``sel``)
+    takes these arguments as they are; returns the row's fields in
+    ``FIELDS`` order."""
+    fields = row.fields
+    if row.sel != sel:
+        raise ValueError(f"row sel={row.sel} is not a {name} row")
+    check_regs(regs)
+    check_tensor(gmem, "gmem", torch.int32, (gmem.shape[0],), regs.device)
+    check_tensor(oob, "oob", torch.bool, (regs.shape[0],), regs.device)
+    if gmem.shape[0] < 1:
+        raise ValueError("the global-memory image is empty")
+    return fields
+
+
+def check_gld_row_args(cfg, row, regs, gmem, oob) -> tuple:
+    """Raise unless the GLD row kernel takes these arguments as they are;
+    returns the row's fields in ``FIELDS`` order."""
+    return _check_gmem_row_args(row, 8, "GLD", regs, gmem, oob)
+
+
+def check_gst_row_args(cfg, row, regs, gmem, oob) -> tuple:
+    """Raise unless the GST row kernel takes these arguments as they are;
+    returns the row's fields in ``FIELDS`` order."""
+    return _check_gmem_row_args(row, 9, "GST", regs, gmem, oob)
 
 
 def simt_gather_shared(gmem, addr, mask, old):
@@ -428,17 +527,51 @@ def simt_gather_shared(gmem, addr, mask, old):
     return out
 
 
+def simt_gld_row(cfg, row, regs, gmem, oob):
+    """One GLD row over a wave: ``regs`` (n, 512, 16) int32, the image
+    ``gmem`` (gdepth,) int32, ``oob`` (n,) bool. On the card ``regs`` and
+    ``oob`` are written in place (one launch) and returned as
+    ``(regs, oob)``."""
+    if not regs.is_cuda:
+        return gld_row_plain(cfg, row, regs, gmem, oob)
+    fields = check_gld_row_args(cfg, row, regs, gmem, oob)
+    n = regs.shape[0]
+    if n:
+        build.launch("egpu_gld_row", "gather_shared", regs.device, *fields,
+                     cfg.n_threads, regs.data_ptr(), gmem.data_ptr(),
+                     oob.data_ptr(), n, gmem.shape[0])
+    return regs, oob
+
+
 def simt_scatter_shared(gmem, addr, vals, do):
     """GST scatter. ``gmem`` (gdepth,) int32; ``addr``/``vals`` (n, 512)
     int32, ``addr`` within ``[0, gdepth)`` where ``do``; ``do`` (n, 512)
-    bool. Returns the new global-memory image."""
+    bool. Returns the new global-memory image (a copy of ``gmem`` that
+    the kernel stores into); ``gmem`` is not modified."""
     if not gmem.is_cuda:
         return scatter_shared_plain(gmem, addr, vals, do)
     check_scatter_shared_args(gmem, addr, vals, do)
     out = gmem.clone()
-    winner = torch.full_like(gmem, -1)
-    build.launch("egpu_scatter_shared", "scatter_shared", gmem.device,
-                 out.data_ptr(), gmem.shape[0], addr.data_ptr(),
-                 vals.data_ptr(), do.data_ptr(), winner.data_ptr(),
-                 vals.numel())
+    if vals.numel():
+        build.launch("egpu_scatter_shared", "scatter_shared", gmem.device,
+                     out.data_ptr(), gmem.shape[0], addr.data_ptr(),
+                     vals.data_ptr(), do.data_ptr(),
+                     gst_scratch(out, vals.numel()), vals.numel())
     return out
+
+
+def simt_gst_row(cfg, row, regs, gmem, oob):
+    """One GST row over a wave: ``regs`` (n, 512, 16) int32, the image
+    ``gmem`` (gdepth,) int32, ``oob`` (n,) bool. On the card ``gmem`` and
+    ``oob`` are written in place (one launch) and returned as
+    ``(gmem, oob)``."""
+    if not regs.is_cuda:
+        return gst_row_plain(cfg, row, regs, gmem, oob)
+    fields = check_gst_row_args(cfg, row, regs, gmem, oob)
+    n = regs.shape[0]
+    if n:
+        build.launch("egpu_gst_row", "scatter_shared", regs.device, *fields,
+                     cfg.n_threads, regs.data_ptr(), gmem.data_ptr(),
+                     oob.data_ptr(), n, gmem.shape[0],
+                     gst_scratch(gmem, n * 512))
+    return gmem, oob

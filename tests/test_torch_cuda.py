@@ -24,10 +24,12 @@ from repro_torch.kernels.simt_alu import (alu_plain, alu_row_plain,
 from repro_torch.kernels.wavefront_dot import (wavefront_dot,
                                                wavefront_dot_plain)
 from repro_torch.kernels.simt_step import (
-    SEGMENT_CHUNK_ROWS, gather_plain, gather_shared_plain, lod_row_plain,
+    SEGMENT_CHUNK_ROWS, gather_plain, gather_shared_plain, gld_row_plain,
+    gst_row_plain, gst_scratch_words, lod_row_plain,
     scatter_plain, scatter_shared_plain, segment_barriers, simt_gather,
-    simt_gather_shared, simt_lod_row, simt_scatter, simt_scatter_shared,
-    simt_segment, simt_sto_row, sto_row_plain)
+    simt_gather_shared, simt_gld_row, simt_gst_row, simt_lod_row,
+    simt_scatter, simt_scatter_shared, simt_segment, simt_sto_row,
+    sto_row_plain)
 
 
 @pytest.fixture
@@ -137,6 +139,24 @@ def test_gmem_kernels_match_plain_versions(dev, span):
 
 
 @pytest.mark.cuda
+def test_gst_tile_kernel_on_a_large_image(dev):
+    # claims that do not fit a CTA's shared memory live in device memory
+    rng = np.random.default_rng(7)
+    gdepth = 1 << 20
+    assert 4 * gst_scratch_words(gdepth, 0) > build.MAX_DYNAMIC_SMEM
+    gmem = _words(fuzz.random_f32_words(rng, (gdepth,)), dev)
+    addr = torch.from_numpy(np.where(
+        rng.random((4, 512)) < 0.5, rng.integers(0, 9, (4, 512)),
+        rng.integers(0, gdepth, (4, 512))).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((4, 512)) < 0.7).to(dev)
+    vals = _words(rng.integers(0, 1 << 32, (4, 512), dtype=np.uint64)
+                  .astype(np.uint32), dev)
+    for _ in range(2):       # the scratch is reused, never cleared
+        assert torch.equal(simt_scatter_shared(gmem, addr, vals, mask),
+                           scatter_shared_plain(gmem, addr, vals, mask))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("typ", [0, 1, 2])
 def test_alu_kernel_matches_plain_version(dev, typ):
     rng = np.random.default_rng(typ)
@@ -232,6 +252,75 @@ def test_row_kernels_match_plain_versions(dev, n_threads, width, bound):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_sms", [1, 4, 16])
+@pytest.mark.parametrize("gdepth,span", [(4096, None), (64, None),
+                                         (4096, 37), (1 << 20, None),
+                                         (1 << 20, 37)])
+def test_gmem_row_kernels_match_plain_versions(dev, n_sms, gdepth, span):
+    # fuzzed GLD and GST rows, half of them snooped with rd their own
+    # address source; addresses around the image (collisions inside and
+    # across SMs), or on ``span`` words; the claims of a 2**20-word image
+    # live in device memory
+    rng = np.random.default_rng(n_sms * gdepth + (span or 0))
+    image = _words(fuzz.random_f32_words(rng, (gdepth,)), dev)
+    keep = image.clone()
+    loaded = stored = flagged = 0
+    for fields in fuzz.random_rows(rng, 40, sels=(8, 9)):
+        row = FusedRow.from_fields(fields)
+        if rng.random() < 0.5:
+            row = dataclasses.replace(row, d={
+                **row.d, "x": 1, "ra": row.d["rd"],
+                "ext_a": int(rng.integers(0, 32))})
+        n_threads = int(rng.choice([512, 200, 96]))
+        cfg = SMConfig(n_threads=n_threads, dim_x=n_threads)
+        regs, _ = fuzz.random_state(rng, n_sms, min(gdepth, 4096))
+        if gdepth > 4096:
+            regs[:, :, 0] = rng.integers(-8, gdepth + 8, (n_sms, 512))
+        if span:
+            regs[:, :, 1] = rng.integers(0, span, (n_sms, 512))
+        regs = _words(regs, dev)
+        oob = torch.from_numpy(rng.random(n_sms) < 0.3).to(dev)
+        flags = oob.clone()
+        if row.sel == 8:        # regs and oob in place
+            want = gld_row_plain(cfg, row, regs, image, oob)
+            got = simt_gld_row(cfg, row, regs.clone(), image, flags)
+            loaded += int(not torch.equal(want[0], regs))
+        else:                   # the image and oob in place
+            want = gst_row_plain(cfg, row, regs, image, oob)
+            got = simt_gst_row(cfg, row, regs, image.clone(), flags)
+            stored += int(not torch.equal(want[0], image))
+        assert got[1] is flags
+        assert torch.equal(got[0], want[0]), row
+        assert torch.equal(got[1], want[1]), row
+        flagged += int(not torch.equal(want[1], oob))
+    assert torch.equal(image, keep)
+    assert loaded and stored and (flagged or span)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdepth", [64, 1 << 20])
+def test_gst_row_last_sm_wins_a_collision_on_the_card(dev, gdepth):
+    # every enabled thread of 16 SMs stores its own word at address 5;
+    # on the last SM the threads past 300 are disabled by the predicate
+    n = 16
+    tid = torch.arange(512, dtype=torch.int32, device=dev)
+    regs = torch.zeros((n, 512, 16), dtype=torch.int32, device=dev)
+    regs[:, :, 1] = 5
+    regs[:, :, 2] = torch.arange(n, dtype=torch.int32, device=dev)[:, None] \
+        * 1000 + tid
+    regs[:, :, 3] = 1
+    regs[n - 1, 300:, 3] = 0
+    image = torch.arange(gdepth, dtype=torch.int32, device=dev)
+    oob = torch.zeros(n, dtype=torch.bool, device=dev)
+    row = _field_row(sel=9, opcode=25, rd=2, ra=1, pen=1, preg=3)
+    got = image.clone()
+    simt_gst_row(SMConfig(), row, regs, got, oob)
+    assert got[5] == (n - 1) * 1000 + 299
+    assert torch.equal(got, gst_row_plain(SMConfig(), row, regs, image,
+                                          oob)[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("op,typ", [(1, 0), (3, 2), (8, 1)])
 def test_snooped_alu_row_reads_before_it_writes(dev, op, typ):
     # rd = ra = rb = preg, every operand snooped from other threads' rd:
@@ -323,6 +412,39 @@ def test_runs_on_the_card_leave_the_callers_state_unchanged(dev):
     want = run(cfg, words, state=init_state(cfg), backend="cpu")
     assert torch.equal(fin.regs.cpu(), want.regs)
     assert torch.equal(fin.shmem.cpu(), want.shmem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["step", "trace", "megakernel"])
+def test_launches_on_the_card_leave_the_callers_gmem_unchanged(dev, engine):
+    # SAXPY-1024 on four SMs (two waves), its image passed as a tensor on
+    # the card: one GLD and GST launch per row, the caller's tensor kept
+    from repro_torch.core import DeviceConfig, launch
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+
+    n = 1024
+    rng = np.random.default_rng(11)
+    image = np.zeros(3 * n + 16, np.float32)
+    image[:2 * n] = rng.standard_normal(2 * n)
+    image[3 * n] = 2.5
+    given = torch.from_numpy(image.view(np.int32)).to(dev)
+    keep = given.clone()
+    words = saxpy_grid_program(n, 128)
+    kw = dict(n_sms=4, global_mem_depth=3 * n + 16, engine=engine,
+              sm=SMConfig(max_steps=10_000))
+    build.reset_launches()
+    res = launch(DeviceConfig(**kw), words, grid=(8,), block=128,
+                 gmem=given)
+    assert build.launches["gather_shared"] == 2 * 3
+    assert build.launches["scatter_shared"] == 2 * 1
+    assert torch.equal(given, keep)
+    want = launch(DeviceConfig(**kw, backend="cpu"), words, grid=(8,),
+                  block=128, gmem=image)
+    assert torch.equal(res.gmem.cpu(), want.gmem)
+    assert torch.equal(res.oob.cpu(), want.oob)
+    z = res.gmem[2 * n:3 * n].view(torch.float32).cpu().numpy()
+    np.testing.assert_allclose(z, 2.5 * image[:n] + image[n:2 * n],
+                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The execute stage's ALU, LOD and STO rows: the row seam on the CPU.
+"""The execute stage's ALU, LOD and STO rows: the row seam on the CPU
+(GLD and GST rows: ``tests/test_torch_gmem_rows.py``).
 
   * ``alu_row_plain`` / ``lod_row_plain`` / ``sto_row_plain`` (the
     ``"cpu"`` backend's row seam, the plain versions the row kernels are
@@ -9,12 +10,13 @@
     with ``preg == rd``), partial active shapes, and LOD/STO collisions
     and out-of-range addresses with a ``shmem_depth`` below the image's
     width;
-  * an ALU, LOD or STO row issues no PyTorch operation outside its one
-    seam call;
-  * a step-engine and a trace-engine launch and ``executor.run(...,
-    state=prev)`` leave the caller's tensors and numpy arrays unchanged,
-    with a seam that writes the state it is given in place, as the row
-    kernels do on the card;
+  * an ALU, LOD, STO, GLD or GST row issues no PyTorch operation outside
+    its one seam call;
+  * a step-, trace- and megakernel-engine wave, ``executor.run(...,
+    state=prev)`` and ``launch`` on every engine leave the caller's
+    tensors and numpy arrays unchanged, the global-memory image among
+    them, with a seam that writes the state it is given in place, as the
+    row kernels do on the card;
   * the row wrappers' argument checks.
 """
 import dataclasses
@@ -212,7 +214,12 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("sel", [1, 2, 3], ids=["ALU", "LOD", "STO"])
+_SEAMS = {1: "alu_row", 2: "lod_row", 3: "sto_row", 8: "gld_row",
+          9: "gst_row"}
+
+
+@pytest.mark.parametrize("sel", [1, 2, 3, 8, 9],
+                         ids=["ALU", "LOD", "STO", "GLD", "GST"])
 def test_rows_issue_only_their_seam_call(sel):
     cpu = get_execute_backend("cpu")
     count = _OpCount()
@@ -229,22 +236,20 @@ def test_rows_issue_only_their_seam_call(sel):
         return call
 
     backend = dataclasses.replace(
-        cpu, name="counting", alu_row=seam("alu_row", cpu.alu_row),
-        lod_row=seam("lod_row", cpu.lod_row),
-        sto_row=seam("sto_row", cpu.sto_row))
+        cpu, name="counting",
+        **{name: seam(name, getattr(cpu, name)) for name in _SEAMS.values()})
     rng = np.random.default_rng(sel)
     regs, shmem = fuzz.random_state(rng, N_SMS, 64)
-    row = _row(sel=sel, opcode={1: 3, 2: 10, 3: 11}[sel], typ=2, rd=4,
-               ra=1, rb=5, x=1, ext_a=3, pen=1, preg=6)
+    row = _row(sel=sel, opcode={1: 3, 2: 10, 3: 11, 8: 24, 9: 25}[sel],
+               typ=2, rd=4, ra=1, rb=5, x=1, ext_a=3, pen=1, preg=6)
     zero = torch.zeros(N_SMS, dtype=torch.int32)
     h = make_data_handlers(SMConfig(), backend, row, zero, zero,
                            shmem_depth=40)[row.sel]
-    state = (_t(regs), _t(shmem), torch.zeros(16, dtype=torch.int32),
+    state = (_t(regs), _t(shmem), _t(shmem[0]),
              torch.zeros(N_SMS, dtype=torch.bool))
     with count:
         out = h(state)
-    assert count.ops == [] and calls == [
-        {1: "alu_row", 2: "lod_row", 3: "sto_row"}[sel]]
+    assert count.ops == [] and calls == [_SEAMS[sel]]
     want = make_data_handlers(SMConfig(), cpu, row, zero, zero,
                               shmem_depth=40)[row.sel](state)
     for g, w in zip(out, want):
@@ -256,8 +261,9 @@ def test_rows_issue_only_their_seam_call(sel):
 # ---------------------------------------------------------------------------
 
 def _in_place(backend: ExecBackend) -> ExecBackend:
-    """``backend`` with ALU, LOD and STO rows that write the tensors they
-    are given in place, as the row kernels do on the card."""
+    """``backend`` with ALU, LOD, STO, GLD and GST rows that write the
+    tensors they are given in place, as the row kernels do on the
+    card."""
     def alu_row(cfg, row, regs):
         return regs.copy_(backend.alu_row(cfg, row, regs))
 
@@ -271,14 +277,26 @@ def _in_place(backend: ExecBackend) -> ExecBackend:
                                              depth)
         return shmem.copy_(new_shmem), oob.copy_(new_oob)
 
+    def gld_row(cfg, row, regs, gmem, oob):
+        new_regs, new_oob = backend.gld_row(cfg, row, regs, gmem, oob)
+        return regs.copy_(new_regs), oob.copy_(new_oob)
+
+    def gst_row(cfg, row, regs, gmem, oob):
+        new_gmem, new_oob = backend.gst_row(cfg, row, regs, gmem, oob)
+        return gmem.copy_(new_gmem), oob.copy_(new_oob)
+
     return dataclasses.replace(backend, name="cpu-in-place",
                                alu_row=alu_row, lod_row=lod_row,
-                               sto_row=sto_row)
+                               sto_row=sto_row, gld_row=gld_row,
+                               gst_row=gst_row)
 
 
-_PROG = ("TDX R1\nADD.INT32 R2, R1, R1\nNOP\nNOP\nSTO R2, (R1)+0\n"
-         "LOD R3, (R1)+1\nMUL.INT32 R1, R2, R2\nNOP\nNOP\n"
-         "STO R1, (R2)+100\nSTO R3, (R2)+101\nSTOP")
+# a GLD before the first fused segment (at addresses mostly outside the
+# image, so it sets oob), GSTs between segments, STO and LOD
+_PROG = ("GLD R5, (R1)+3\nTDX R1\nGST R1, (R1)+0\nADD.INT32 R2, R1, R5\n"
+         "NOP\nNOP\nSTO R2, (R1)+0\nLOD R3, (R1)+1\nGLD R6, (R1)+0\n"
+         "MUL.INT32 R1, R2, R2\nNOP\nNOP\nSTO R1, (R2)+100\n"
+         "STO R3, (R2)+101\nGST R6, (R2)+64\nSTOP")
 
 
 @pytest.fixture
@@ -288,7 +306,7 @@ def in_place():
     del _EXECUTE_BACKENDS["cpu-in-place"]
 
 
-@pytest.mark.parametrize("engine", ["step", "trace"])
+@pytest.mark.parametrize("engine", ["step", "trace", "megakernel"])
 def test_wave_leaves_the_callers_state_unchanged(engine, in_place):
     cfg = SMConfig(n_threads=64, dim_x=64, shmem_depth=128)
     rng = np.random.default_rng(3)
@@ -296,9 +314,12 @@ def test_wave_leaves_the_callers_state_unchanged(engine, in_place):
                            dtype=np.uint64).astype(np.uint32)
     shmem_np = rng.integers(0, 1 << 32, (2, 128),
                             dtype=np.uint64).astype(np.uint32)
-    keep = regs_np.copy(), shmem_np.copy()
+    gmem_np = rng.integers(0, 1 << 32, 256, dtype=np.uint64).astype(
+        np.uint32)
+    keep = regs_np.copy(), shmem_np.copy(), gmem_np.copy()
     st = t_device.init_device_state(cfg, 2)
     st.regs, st.shmem = _t(regs_np), _t(shmem_np)   # share the arrays
+    st.gmem = _t(gmem_np)
     st.oob = torch.zeros(2, dtype=torch.bool)
     words = assemble(_PROG).words
     zero = torch.zeros(2, dtype=torch.int32)
@@ -306,19 +327,26 @@ def test_wave_leaves_the_callers_state_unchanged(engine, in_place):
     if engine == "step":
         fin = t_device.run_wave(cfg, backend, *pack_imem(words, 1024),
                                 zero, zero, st)
-    else:
+    elif engine == "trace":
         fin = t_trace.run_wave_trace(cfg, backend,
                                      t_trace.compile_program(words, cfg),
                                      zero, zero, st)
+    else:
+        plan = t_trace.compile_megakernel(words, cfg)
+        assert plan.items[0][0] == "gmem"    # a GLD before any segment
+        fin = t_trace.run_wave_megakernel(backend, plan, zero, zero, st)
     assert np.array_equal(regs_np, keep[0])
     assert np.array_equal(shmem_np, keep[1])
+    assert np.array_equal(gmem_np, keep[2])
     assert not st.oob.any()
     # the wave's own state moved, and equals the out-of-place seam's
     assert not np.array_equal(_u32(fin.regs), keep[0])
+    assert not np.array_equal(_u32(fin.gmem), keep[2])
+    assert fin.oob.all()
     want = t_device.run_wave(cfg, get_execute_backend("cpu"),
                              *pack_imem(words, 1024), zero, zero, st)
-    assert torch.equal(fin.regs, want.regs)
-    assert torch.equal(fin.shmem, want.shmem)
+    for k in ("regs", "shmem", "gmem", "oob"):
+        assert torch.equal(getattr(fin, k), getattr(want, k)), k
 
 
 def test_run_and_launch_leave_the_callers_state_unchanged(in_place):
@@ -338,6 +366,30 @@ def test_run_and_launch_leave_the_callers_state_unchanged(in_place):
                  words, grid=(3,), block=64, shmem=images)
     assert np.array_equal(images, keep)
     assert not np.array_equal(res.shmem.numpy().view(np.uint32), keep)
+
+
+@pytest.mark.parametrize("engine", ["step", "trace", "megakernel"])
+def test_launch_leaves_the_callers_gmem_unchanged(engine, in_place):
+    # the image as an int32 tensor of the launch's depth, as numpy words
+    # and as named buffers; three blocks on two SMs chain two waves
+    words = assemble(_PROG).words
+    rng = np.random.default_rng(5)
+    image = rng.integers(0, 1 << 32, 256, dtype=np.uint64).astype(np.uint32)
+    dcfg = DeviceConfig(n_sms=2, global_mem_depth=256, backend=in_place,
+                        engine=engine, sm=SMConfig(shmem_depth=128))
+    want = launch(dataclasses.replace(dcfg, backend="cpu"), words,
+                  grid=(3,), block=64, gmem=image)
+    for given in (_t(image), image, {"a": image[:100], "b": image[100:]}):
+        keep = image.copy()
+        kw = {"buffers": given} if isinstance(given, dict) \
+            else {"gmem": given}
+        res = launch(dcfg, words, grid=(3,), block=64, **kw)
+        assert np.array_equal(image, keep)
+        assert res.n_waves == 2 and res.engine == engine
+        assert torch.equal(res.gmem, want.gmem)
+        assert torch.equal(res.regs, want.regs)
+        assert torch.equal(res.oob, want.oob)
+    assert not np.array_equal(want.gmem.numpy().view(np.uint32), image)
 
 
 # ---------------------------------------------------------------------------

@@ -357,8 +357,8 @@ def test_fuel_limited_program_matches_reference():
 def test_engines_hand_the_kernels_what_they_take():
     # a host backend that checks every seam call as the CUDA wrappers do
     # (dtype, shape, device, contiguity, row fields) before its plain
-    # version: the step and trace engines must pass all five kernels'
-    # checks
+    # version: the step and trace engines must pass all five row kernels'
+    # checks, the megakernel engine the GLD and GST row kernels'
     from repro_torch.core.executor import (ExecBackend, _EXECUTE_BACKENDS,
                                            get_execute_backend,
                                            register_backend)
@@ -381,10 +381,16 @@ def test_engines_hand_the_kernels_what_they_take():
         lod_row=checked("lod_row", k_step.check_lod_row_args,
                         cpu.lod_row),
         sto_row=checked("sto_row", k_step.check_sto_row_args, cpu.sto_row),
-        gld=checked("gld", k_step.check_gather_shared_args, cpu.gld),
-        gst=checked("gst", k_step.check_scatter_shared_args, cpu.gst)))
+        gld_row=checked("gld_row", k_step.check_gld_row_args, cpu.gld_row),
+        gst_row=checked("gst_row", k_step.check_gst_row_args,
+                        cpu.gst_row)))
     try:
         x = np.arange(64, dtype=np.float32)
+        dev = DeviceConfig(n_sms=2, global_mem_depth=512,
+                           engine="megakernel", backend="checked",
+                           sm=SMConfig(max_steps=100_000))
+        launch_saxpy(2.0, x, x, device=dev, block=16)
+        assert seen == {"gld_row", "gst_row"}
         for engine in ("step", "trace"):
             dev = DeviceConfig(n_sms=2, global_mem_depth=512, engine=engine,
                                backend="checked",
@@ -399,4 +405,4 @@ def test_engines_hand_the_kernels_what_they_take():
         launch(dev, programs=[Kernel(a, block=16)], grid_map=[0, 0])
     finally:
         del _EXECUTE_BACKENDS["checked"]
-    assert seen == {"alu_row", "lod_row", "sto_row", "gld", "gst"}
+    assert seen == {"alu_row", "lod_row", "sto_row", "gld_row", "gst_row"}

@@ -4,7 +4,7 @@ turns, on one card.
 
     python3 tools/turns.py KERNEL ROOT_A ROOT_B [...]
 
-KERNEL is ``segment``, ``qrd`` or ``paths``. It runs the roots in order
+KERNEL is ``segment``, ``qrd``, ``gmem`` or ``paths``. It runs the roots in order
 and then in reverse (A, B, B, A for two), each turn one process on that
 checkout's ``src``: the process builds the checkout's kernels in its own
 ``build/`` and times the kernel at fixed shapes, each held ``==`` to its
@@ -21,9 +21,17 @@ name and power limit.
   its kernel.
 - ``qrd``: ``mgs_qrd`` at ``chip_smoke.QRD_SHAPES`` on
   ``chip_smoke.qrd_batch``'s input, held to ``mgs_qrd_plain``.
+- ``gmem``: a whole GLD and GST handler call of the execute stage
+  (``executor.make_data_handlers`` on the ``"cuda"`` backend, whatever
+  the checkout's handler runs) on one SAXPY-4096 wave
+  (``chip_smoke.gmem_wave``: four 512-thread SMs, the 12304-word image),
+  each first held ``==`` the ``"cpu"`` backend's handler on host copies
+  of the same state; and the GST handler on the card alone at 1, 4 and
+  16 SMs (``gst_device_ms_by_sms``), its cost per lane.
 - ``paths``: not one kernel but the host's cost around them: a launch of
-  QRD-16 x 16 and of FFT-64 x 64 on four SMs through the megakernel, step
-  and trace engines, timed on the host's clock to the end of
+  QRD-16 x 16, of FFT-64 x 64 and of SAXPY-4096 (grid 8 x 512, its 8
+  GLD/GST rows a wave) on four SMs through the megakernel, step and trace
+  engines, timed on the host's clock to the end of
   ``torch.cuda.synchronize()`` six times (``first_ms`` the first, with
   its host lowering; ``median_ms`` the median of the other five), then
   held to the same launch on the host (``chip_smoke.same_launch``). A
@@ -119,26 +127,65 @@ def qrd(cs, root: Path) -> dict:
     return out
 
 
+def gmem(cs, root: Path) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.executor import (get_execute_backend,
+                                           make_data_handlers)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20260611)
+    cfg, gld, gst, state = cs.gmem_wave(rng, dev)
+    n = state[0].shape[0]
+    out = {}
+    for name, row in (("gld_row", gld), ("gst_row", gst)):
+        host = tuple(x.cpu() for x in state)
+        idx = torch.arange(n, dtype=torch.int32)
+        want = make_data_handlers(cfg, get_execute_backend("cpu"), row, idx,
+                                  idx)[row.sel](host)
+        h = make_data_handlers(cfg, get_execute_backend("cuda"), row,
+                               idx.to(dev), idx.to(dev))[row.sel]
+        got = h(tuple(x.clone() for x in state))
+        for what, g, w in zip(("regs", "shmem", "gmem", "oob"), got, want):
+            cs.words_equal(f"{name} {what} {root}", g, w)
+        out[name] = dict(ms=cs.cuda_time_ms(lambda: h(state), 200),
+                         device_ms=cs.cuda_device_ms(lambda: h(state)))
+    out["gst_device_ms_by_sms"] = {}
+    for k in (1, 4, 16):
+        cfg, _, gst, wave = cs.gmem_wave(rng, dev, k)
+        idx = torch.arange(k, dtype=torch.int32, device=dev)
+        h = make_data_handlers(cfg, get_execute_backend("cuda"), gst, idx,
+                               idx)[gst.sel]
+        out["gst_device_ms_by_sms"][k] = cs.cuda_device_ms(lambda: h(wave))
+    return out
+
+
 def paths(cs, root: Path) -> dict:
     import time
 
     import numpy as np
     import torch
     from repro_torch.core import DeviceConfig, SMConfig
-    from repro_torch.core.programs import run_fft_batch, run_qrd_batch
+    from repro_torch.core.programs import (launch_saxpy, run_fft_batch,
+                                           run_qrd_batch)
 
     rng = np.random.default_rng(20260611)
     As = rng.standard_normal((16, 16, 16)).astype(np.float32)
     xs = (rng.standard_normal((64, 64))
           + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
+    x, y = rng.standard_normal((2, 4096)).astype(np.float32)
     work = {"qrd16": (lambda d: run_qrd_batch(As, device=d)[2],
-                      SMConfig(imem_depth=1024, max_steps=200_000)),
+                      dict(sm=SMConfig(imem_depth=1024, max_steps=200_000))),
             "fft64": (lambda d: run_fft_batch(xs, device=d)[1],
-                      SMConfig(max_steps=200_000))}
+                      dict(sm=SMConfig(max_steps=200_000))),
+            "saxpy4096": (lambda d: launch_saxpy(2.5, x, y, device=d,
+                                                 block=512)[1],
+                          dict(global_mem_depth=3 * 4096 + 16,
+                               sm=SMConfig(max_steps=10_000)))}
     out = {}
-    for name, (run, sm) in work.items():
+    for name, (run, kw) in work.items():
         for engine in ("megakernel", "step", "trace"):
-            dev = DeviceConfig(n_sms=4, engine=engine, sm=sm)
+            dev = DeviceConfig(n_sms=4, engine=engine, **kw)
             walls = []
             for _ in range(6):
                 torch.cuda.synchronize()
@@ -147,13 +194,13 @@ def paths(cs, root: Path) -> dict:
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             cs.same_launch(f"{name} {engine}", res, run(DeviceConfig(
-                n_sms=4, engine=engine, backend="cpu", sm=sm)))
+                n_sms=4, engine=engine, backend="cpu", **kw)))
             out[f"{name}_{engine}"] = dict(
                 first_ms=walls[0], median_ms=float(np.median(walls[1:])))
     return out
 
 
-KERNELS = {"segment": segment, "qrd": qrd, "paths": paths}
+KERNELS = {"segment": segment, "qrd": qrd, "gmem": gmem, "paths": paths}
 
 
 def one(kernel: str, root: Path, prefixes: bool = False) -> dict:
