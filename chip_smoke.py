@@ -63,11 +63,14 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      PyTorch call computes the same function, that call (timed only);
      the kernel and that call are timed once more on the card alone
      (``device_ms``: queued behind a sleep kernel, so the host's cost
-     per launch is hidden); more rows time ``fft`` at FFT-4096 x 1024
-     (a CTA per row), ``qrd`` at QRD-8 x 4096 and QRD-32 x 1024 beside
-     its QRD-16 x 4096, ``flash`` in bfloat16, the tile forms of ``alu``,
-     ``gather``, ``scatter``, ``gather_shared`` and ``scatter_shared``,
-     ``segment`` on one FFT-64 wave, and a whole ALU, LOD, STO, GLD and
+     per launch is hidden); ``dot`` is also timed cold (the calls rotate
+     through input sets of twice the L2), at 16 x 512 beside its 4096 x
+     512, and with a's lanes 12-15 zero and with every wavefront on its
+     exact path; more rows time ``fft`` at FFT-4096 x 1024 (a CTA per row),
+     ``qrd`` at QRD-8 x 4096 and QRD-32 x 1024 beside its QRD-16 x
+     4096, ``flash`` in bfloat16, the tile forms of ``alu``, ``gather``,
+     ``scatter``, ``gather_shared`` and ``scatter_shared``, ``segment``
+     on one FFT-64 wave, and a whole ALU, LOD, STO, GLD and
      GST handler call beside the per-op composition of the same row, in
      turns;
   6. prints the barriers the FFT-64 and QRD-16 plans place in their
@@ -79,6 +82,7 @@ Any failure raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -582,7 +586,8 @@ def check_rows(rng, dev) -> dict[str, int]:
 
 def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
     """The kernel layer's kernels against their plain versions: dot over
-    fuzzed words with random masks in both modes, FFT at every N =
+    fuzzed words and over products and sums around 2**-126, with random
+    masks, in both modes at 1...4096 SMs, FFT at every N =
     2...16384 in both output orders over row counts that fill no whole
     CTA, QRD at n = 5, 8, 16, 31, 32 over 64 and 37 matrices, with
     non-finite input (all ``==``, NaNs as one word), and flash causal and
@@ -605,15 +610,24 @@ def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     words = lambda x: x.view(torch.int32)  # noqa: E731
     worst = {"dot": 0, "fft": 0, "qrd": 0, "flash": 0.0}
-    for n_sm in (8, 24, 4096):
+    # 1, 3 and 129 SMs leave the kernel's last CTA (4 SMs) partial; the
+    # second draw puts DOT products and SUM sums around 2**-126
+    for n_sm in (1, 3, 8, 24, 129, 4096):
         for mode in (0, 1):
-            a, b = (t(fuzz.random_f32_words(rng, (n_sm, 512)).view(
-                np.float32)) for _ in range(2))
-            mask = t(rng.random((n_sm, 512)) < 0.6)
-            worst["dot"] = max(worst["dot"], words_equal(
-                f"dot n_sm={n_sm} mode={mode}",
-                words(wavefront_dot(a, b, mask, mode)),
-                words(wavefront_dot_plain(a, b, mask, mode))))
+            tiny = fuzz.tiny_product_words(rng, (2, n_sm, 512))
+            for what, (a, b) in (
+                    ("fuzzed", (fuzz.random_f32_words(rng, (n_sm, 512))
+                                for _ in range(2))),
+                    ("tiny", (tiny[0][0], tiny[1][0]) if mode == 0
+                     else tiny[1])):
+                a, b = (t(x.view(np.float32)) for x in (a, b))
+                mask = rng.random((n_sm, 512)) < 0.6
+                mask[:, 16:32] = False    # an all-off wavefront per SM
+                mask = t(mask)
+                worst["dot"] = max(worst["dot"], words_equal(
+                    f"dot {what} n_sm={n_sm} mode={mode}",
+                    words(wavefront_dot(a, b, mask, mode, block_sm=1)),
+                    words(wavefront_dot_plain(a, b, mask, mode))))
     # a warp per tile of max(1, 256 / N) rows and eight tiles per CTA up
     # to N = 1024, a CTA per row above: 37 and 5 rows fill no whole CTA
     for log2n in range(1, 15):
@@ -1726,6 +1740,57 @@ def time_step_kernels(rng, dev, iters: int) -> dict[str, dict]:
     return out
 
 
+# the input sets a cold ``dot`` timing rotates through: twice the card's
+# 50 MB L2 in all, so each call finds its inputs in device memory
+COLD_BYTES = 100e6
+
+
+# what ``time_dot``'s inputs hold besides normal draws: nothing; zeros in
+# a quarter of a's lanes (lanes 12-15, as in a zero-padded vector); or one
+# product a wavefront at 2**-140, flushed, so that every wavefront takes
+# the kernel's exact path
+DOT_FILLS = {"normal": "every lane a normal draw",
+             "zeros": "a's lanes 12-15 zero",
+             "exact": "lane 0's product 2**-140 (the exact path)"}
+
+
+def time_dot(dev, n_sm: int, iters: int = 200, fill: str = "normal") -> dict:
+    """``wavefront_dot`` (DOT, every lane) at n_sm x 512, held ``==`` its
+    plain version first: warm (one input set, ``ms``/``device_ms``, as the
+    other rows) and cold (the calls rotate through at least four input
+    sets of COLD_BYTES in all: ``cold_ms``/``cold_device_ms``), beside the
+    plain version. The inputs are seeded normal draws made on the card,
+    with ``fill`` (DOT_FILLS) written over them."""
+    import torch
+    from repro_torch.kernels.wavefront_dot import (wavefront_dot,
+                                                   wavefront_dot_plain)
+
+    nbytes = n_sm * 512 * (4 + 4 + 1) + n_sm * 32 * 4
+    n_sets = max(4, -int(-COLD_BYTES // nbytes))
+    g = torch.Generator(device=dev).manual_seed(n_sm)
+    a, b = (torch.randn((n_sets, n_sm, 32, 16), generator=g, device=dev)
+            for _ in range(2))
+    if fill == "zeros":
+        a[..., 12:] = 0.0
+    elif fill == "exact":
+        a[..., 0] = b[..., 0] = 2.0 ** -70
+    a, b = (x.view(n_sets, n_sm, 512) for x in (a, b))
+    mask = torch.ones((n_sets, n_sm, 512), dtype=torch.bool, device=dev)
+    sets = [(a[i], b[i], mask[i]) for i in range(n_sets)]
+    words_equal(f"dot {n_sm} x 512 {fill}", wavefront_dot(*sets[0], 0).view(
+        torch.int32), wavefront_dot_plain(*sets[0], 0).view(torch.int32))
+    warm = lambda: wavefront_dot(*sets[0], 0)  # noqa: E731
+    cycle = itertools.cycle(sets)
+    cold = lambda: wavefront_dot(*next(cycle), 0)  # noqa: E731
+    return dict(
+        ms=cuda_time_ms(warm, iters), device_ms=cuda_device_ms(warm),
+        cold_ms=cuda_time_ms(cold, iters), cold_device_ms=cuda_device_ms(cold),
+        plain_ms=cuda_time_ms(lambda: wavefront_dot_plain(*sets[0], 0), 5),
+        library_ms=None, bytes=nbytes, ops=n_sm * 32 * 31,
+        shape=f"DOT: {n_sm} x 512 lanes, every lane, {DOT_FILLS[fill]} "
+              f"(cold: {n_sets} input sets in turn)")
+
+
 def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
     """dot, FFT, QRD and flash at the kernel path's shapes, each beside
     its plain version and, where one exists, the one PyTorch call that
@@ -1737,21 +1802,12 @@ def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.mgs_qrd import mgs_qrd, mgs_qrd_plain
-    from repro_torch.kernels.wavefront_dot import (wavefront_dot,
-                                                   wavefront_dot_plain)
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     f32 = lambda shape: t(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
-    out = {}
-    n_sm = 4096
-    a, b = f32((n_sm, 512)), f32((n_sm, 512))
-    mask = torch.ones((n_sm, 512), dtype=torch.bool, device=dev)
-    out["dot"] = dict(
-        ms=cuda_time_ms(lambda: wavefront_dot(a, b, mask, 0), iters),
-        device_ms=cuda_device_ms(lambda: wavefront_dot(a, b, mask, 0)),
-        plain_ms=cuda_time_ms(lambda: wavefront_dot_plain(a, b, mask, 0), 5),
-        library_ms=None, bytes=n_sm * 512 * (4 + 4 + 1) + n_sm * 32 * 4,
-        ops=n_sm * 32 * 31, shape=f"DOT: {n_sm} x 512 lanes, every lane")
+    out = {"dot": time_dot(dev, 4096, iters), "dot16": time_dot(dev, 16, iters),
+           "dot_zeros": time_dot(dev, 4096, iters, "zeros"),
+           "dot_exact": time_dot(dev, 4096, iters, "exact")}
 
     rows, n = 4096, 256
     log2n = n.bit_length() - 1
@@ -1900,14 +1956,16 @@ def main() -> int:
         "flash_bf16_32x1024x128_max_abs_err": flash_bf16_timed_err,
         "timing_shapes": {k: v["shape"] for k, v in timing.items()},
         "device_ms": {k: v["device_ms"] for k, v in timing.items()},
+        "cold_device_ms": {k: v["cold_device_ms"] for k, v in timing.items()
+                           if "cold_device_ms" in v},
         "library_device_ms": {k: v["library_device_ms"]
                               for k, v in timing.items()
                               if "library_device_ms" in v},
         # timing rows beside the kernels line's (one kernel at a second
         # shape or type)
         "extra_rows": {k: {f: v[f] for f in (
-            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by", "composed_ms", "composed_device_ms", "ms_2",
+            "ms", "device_ms", "cold_ms", "cold_device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by", "composed_ms", "composed_device_ms", "ms_2",
             "composed_ms_2") if f in v} for k, v in timing.items()
             if k not in SOURCES},
         "library_3d_device_ms": {k: v["library_3d_device_ms"]

@@ -31,7 +31,8 @@ def wavefront_dot(a, b, mask, mode: int = 0, *, block_sm: int = 8):
     """``(n_sm, 512)`` float32 ``a``, ``b`` and bool ``mask`` -> ``(n_sm,
     32)`` float32 per-wavefront sums. ``mode`` is a host integer; the
     kernel picks its own tile, ``block_sm`` is checked as the reference
-    checks it."""
+    checks it. On the card, ``a``, ``b`` and ``mask`` must start at a
+    16-byte boundary (a view at another offset raises ``ValueError``)."""
     if a.ndim != 2 or a.shape[1] != N_THREADS:
         raise ValueError(f"a has shape {tuple(a.shape)}, want (n_sm, "
                          f"{N_THREADS})")
@@ -47,6 +48,10 @@ def wavefront_dot(a, b, mask, mode: int = 0, *, block_sm: int = 8):
     check_tensor(a, "a", torch.float32, a.shape, dev)
     check_tensor(b, "b", torch.float32, a.shape, dev)
     check_tensor(mask, "mask", torch.bool, a.shape, dev)
+    for name, t in (("a", a), ("b", b), ("mask", mask)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte boundary: the "
+                             f"kernel loads it 16 bytes at a time")
     out = torch.empty((n_sm, N_WAVES), dtype=torch.float32, device=dev)
     build.launch("egpu_wavefront_dot", "dot", dev, mode, a.data_ptr(),
                  b.data_ptr(), mask.data_ptr(), out.data_ptr(), n_sm * N_WAVES)

@@ -452,15 +452,63 @@ def test_launches_on_the_card_leave_the_callers_gmem_unchanged(dev, engine):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["fuzzed", "tiny", "zeros"])
 @pytest.mark.parametrize("mode", [0, 1])
-def test_dot_kernel_matches_plain_version(dev, mode):
+@pytest.mark.parametrize("n_sm", [1, 3, 24, 129, 4096])
+def test_dot_kernel_matches_plain_version(dev, n_sm, mode, draw):
+    # the kernel takes 4 SMs (128 wavefronts) a CTA: 1, 3 and 129 SMs
+    # leave its last CTA partial, 1 and 3 its only one. ``tiny``: DOT
+    # products and SUM sums around 2**-126 (denormal, flushed and normal
+    # outcomes, and the products x86 flushes, tiny after rounding);
+    # ``zeros``: normal draws with signed zeros and denormals in a's lanes
+    # 12-15, the exact zero products the kernel keeps off its exact path
     rng = np.random.default_rng(40 + mode)
-    a, b = (_words(fuzz.random_f32_words(rng, (24, 512)), dev)
-            .view(torch.float32) for _ in range(2))
-    mask = torch.from_numpy(rng.random((24, 512)) < 0.6).to(dev)
-    got = wavefront_dot(a, b, mask, mode)
+    if draw == "tiny":
+        pa, pb = fuzz.tiny_product_words(rng, (2, n_sm, 512))
+        words = (pa[0], pb[0]) if mode == 0 else pb
+    elif draw == "zeros":
+        words = [rng.standard_normal((n_sm, 512)).astype(np.float32).view(
+            np.uint32) for _ in range(2)]
+        pad = words[0].reshape(n_sm, 32, 16)[..., 12:]
+        pad[...] = rng.choice(np.array([0, 0x80000000, 1, 0x807FFFFF],
+                                       dtype=np.uint32), pad.shape)
+    else:
+        words = [fuzz.random_f32_words(rng, (n_sm, 512)) for _ in range(2)]
+    a, b = (_words(x, dev).view(torch.float32) for x in words)
+    mask = torch.from_numpy(rng.random((n_sm, 512)) < 0.6).to(dev)
+    got = wavefront_dot(a, b, mask, mode, block_sm=1)
     want = wavefront_dot_plain(a, b, mask, mode)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dot_kernel_all_masked_gives_plus_zero(dev, mode):
+    rng = np.random.default_rng(mode)
+    words = fuzz.random_f32_words(rng, (9, 512))
+    words[:, ::2] = 0x7FC00000                   # NaNs in every other lane
+    a = _words(words, dev).view(torch.float32)
+    got = wavefront_dot(a, a, torch.zeros((9, 512), dtype=torch.bool,
+                                          device=dev), mode, block_sm=1)
+    assert torch.equal(got.view(torch.int32),
+                       torch.zeros((9, 32), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["a", "b", "mask"])
+def test_dot_kernel_rejects_a_misaligned_view(dev, name):
+    # a contiguous view 4 bytes past a 16-byte boundary: the kernel's
+    # loads are 16 bytes wide
+    args = {"a": torch.ones((8, 512), device=dev),
+            "b": torch.ones((8, 512), device=dev),
+            "mask": torch.ones((8, 512), dtype=torch.bool, device=dev)}
+    t = args[name]
+    skip = 4 // t.element_size()
+    args[name] = torch.empty(t.numel() + skip, dtype=t.dtype,
+                             device=dev)[skip:].view(8, 512).copy_(t)
+    assert args[name].is_contiguous() and args[name].data_ptr() % 16
+    with pytest.raises(ValueError, match=f"^{name} must start"):
+        wavefront_dot(args["a"], args["b"], args["mask"], 0)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,7 @@ turns, on one card.
 
     python3 tools/turns.py KERNEL ROOT_A ROOT_B [...]
 
-KERNEL is ``segment``, ``qrd``, ``gmem`` or ``paths``. It runs the roots in order
+KERNEL is ``segment``, ``qrd``, ``gmem``, ``dot`` or ``paths``. It runs the roots in order
 and then in reverse (A, B, B, A for two), each turn one process on that
 checkout's ``src``: the process builds the checkout's kernels in its own
 ``build/`` and times the kernel at fixed shapes, each held ``==`` to its
@@ -28,6 +28,14 @@ name and power limit.
   each first held ``==`` the ``"cpu"`` backend's handler on host copies
   of the same state; and the GST handler on the card alone at 1, 4 and
   16 SMs (``gst_device_ms_by_sms``), its cost per lane.
+- ``dot``: ``wavefront_dot`` (DOT, every lane) at 16 x 512 and 4096 x
+  512, and at 4096 x 512 with a's lanes 12-15 zero and with every
+  wavefront on the exact path (``chip_smoke.time_dot``, its
+  ``DOT_FILLS``: held ``==`` its plain version, then warm, one input
+  set, and cold, the calls rotating through input sets of twice the
+  card's 50 MB L2, each as ``ms`` and ``device_ms``), and the static
+  SASS instructions of each kernel of the checkout's ``dot`` library
+  (``cuobjdump -sass``, NOPs left out).
 - ``paths``: not one kernel but the host's cost around them: a launch of
   QRD-16 x 16, of FFT-64 x 64 and of SAXPY-4096 (grid 8 x 512, its 8
   GLD/GST rows a wave) on four SMs through the megakernel, step and trace
@@ -49,6 +57,8 @@ cost.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -160,6 +170,37 @@ def gmem(cs, root: Path) -> dict:
     return out
 
 
+def sass_counts(lib: Path) -> dict:
+    """Static SASS instructions of each kernel in a built library, NOPs
+    left out (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            name = fn.group(1)
+            counts[name] = 0
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)", line)
+        if name and ins and not ins.group(1).startswith("NOP"):
+            counts[name] += 1
+    return counts
+
+
+def dot(cs, root: Path) -> dict:
+    import torch
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    out = {f"dot{n_sm}": cs.time_dot(dev, n_sm) for n_sm in (16, 4096)}
+    for fill in ("zeros", "exact"):
+        out[f"dot4096_{fill}"] = cs.time_dot(dev, 4096, fill=fill)
+    out["sass"] = sass_counts(build.build_all()["dot"])
+    return out
+
+
 def paths(cs, root: Path) -> dict:
     import time
 
@@ -200,7 +241,8 @@ def paths(cs, root: Path) -> dict:
     return out
 
 
-KERNELS = {"segment": segment, "qrd": qrd, "gmem": gmem, "paths": paths}
+KERNELS = {"segment": segment, "qrd": qrd, "gmem": gmem, "dot": dot,
+           "paths": paths}
 
 
 def one(kernel: str, root: Path, prefixes: bool = False) -> dict:
