@@ -36,6 +36,11 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
          reduction of 1024 elements;
        * trace-path, the trace engine: FFT-64 and QRD-16, which must equal
          the step path's runs word for word;
+       * merged-path, heterogeneous grids in merged waves: FFT-64 x 64
+         interleaved with QRD-16 x 16 (the paper's mixed deployment,
+         ``launch_fft_qrd``) through "auto" (the megakernel), on the trace
+         engine and under length packing, and the fused two-stage
+         reduction of 1024 elements through "auto";
        * kernel-path, the kernel layer's entry points (``kernels.ops``):
          the QRD solver of examples/qrd_solver.py over 4096 16x16 systems,
          QRD-32 x 1024 and QRD-8 x 4096; the spectral pipeline of
@@ -50,14 +55,15 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      have launched in it, and ``alu``, ``gather``, ``scatter``,
      ``gather_shared`` and ``scatter_shared`` exactly once per ALU, LOD,
      STO, GLD and GST row the host executed (the megakernel's SAXPY, and
-     the step and trace paths). One ALU, LOD, STO, GLD and GST row of the
+     the step, trace and merged paths). One ALU, LOD, STO, GLD and GST row of the
      step and trace engines, and one GLD and GST row of the megakernel,
      must issue one launch, one CUDA kernel and no PyTorch operation (a
      TorchDispatchMode count and the profiler's count of CUDA kernels),
      beside the per-op composition of the same rows that the row seam
      replaced;
   4. reproduces the [4sm] golden entries the port reaches from
-     tests/golden_cycles.json;
+     tests/golden_cycles.json (the mixed FFT + QRD entries on the engine
+     each names, "auto" where it names none);
   5. times each kernel at its path's shapes with CUDA events beside its
      plain version, its least possible time (its bound) and, where one
      PyTorch call computes the same function, that call (timed only);
@@ -161,6 +167,8 @@ PATH_KERNELS = {
     "step-path": ("alu", "gather", "scatter", "gather_shared",
                   "scatter_shared"),
     "trace-path": ("alu", "gather", "scatter"),
+    "merged-path": ("segment", "gather_shared", "scatter_shared", "alu",
+                    "gather", "scatter"),
     "kernel-path": ("dot", "fft", "qrd", "flash"),
 }
 # the flash kernel against its plain version (float32: another summation
@@ -1186,6 +1194,76 @@ def trace_path(keep):
     return check_path("trace-path", per), per
 
 
+def merged_path(rng):
+    """Heterogeneous grids in merged waves at full width: FFT-64 x 64
+    interleaved with QRD-16 x 16 through "auto" (the megakernel), on the
+    trace engine and under "length" packing, and the fused reduction of
+    1024 elements through "auto". Each runs on the card and on the host
+    (``COUNTED_HOST``) and must give equal state, counters and profile,
+    ``trace_merge`` included; the card must launch ``alu``, ``gather``,
+    ``scatter``, ``gather_shared`` and ``scatter_shared`` once per ALU,
+    LOD, STO, GLD and GST row the host executed, and a megakernel run
+    its ``segment`` kernel."""
+    import dataclasses
+
+    from repro_torch.core import DeviceConfig, SMConfig
+    from repro_torch.core.programs import (launch_fft_qrd, launch_reduction,
+                                           mixed_device)
+
+    per = {}
+    host_rows = counted_host_backend()
+
+    def both(name, fn, engine):
+        (out, res), got = on_card(lambda: fn(None))
+        host_rows.update(dict.fromkeys(host_rows, 0))
+        _, res_c = fn(COUNTED_HOST)
+        same_launch(name, res, res_c)
+        assert res.engine == engine, (name, res.engine)
+        assert res.trace_merge is not None, name
+        assert res.halted and not bool(res.oob.any()), name
+        for k, n_rows in host_rows.items():
+            if got[k] != n_rows:
+                raise AssertionError(f"{name}: {got[k]} {k} launches on the "
+                                     f"card for {n_rows} rows")
+        if engine == "megakernel" and not got["segment"]:
+            raise AssertionError(f"{name}: no segment launch")
+        per[name] = dict(launches=got, rows=dict(host_rows),
+                         cycles=res.cycles, waves=res.n_waves,
+                         trace_merge={k: v for k, v in res.trace_merge.items()
+                                      if k != "per_wave"})
+        return out, res
+
+    xs = (rng.standard_normal((64, 64))
+          + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
+    As = rng.standard_normal((16, 16, 16)).astype(np.float32)
+    ref = np.fft.fft(xs, axis=1)
+    for name, engine, kw in (
+            ("fft64_qrd16", "megakernel", {}),
+            ("fft64_qrd16_trace", "trace", {"engine": "trace"}),
+            ("fft64_qrd16_length", "megakernel", {"packing": "length"})):
+        def run(backend, kw=kw):
+            dev = mixed_device(64, n_sms=4, backend=backend)
+            if "engine" in kw:
+                dev = dataclasses.replace(dev, engine=kw["engine"])
+            X, Q, R, res = launch_fft_qrd(xs, As, device=dev,
+                                          packing=kw.get("packing"))
+            return (X, Q, R), res
+        (X, Q, R), _ = both(name, run, engine)
+        np.testing.assert_allclose(X, ref, rtol=0,
+                                   atol=2e-5 * np.abs(ref).max())
+        check_qr(Q.astype(np.float64), R.astype(np.float64),
+                 As.astype(np.float64))
+
+    xr = rng.standard_normal(1024).astype(np.float32)
+    total, _ = both("reduction1024_fused", lambda backend: launch_reduction(
+        xr, block=256, fused=True, device=DeviceConfig(
+            n_sms=4, global_mem_depth=2048, sm=SMConfig(max_steps=50_000),
+            **({"backend": backend} if backend else {}))), "megakernel")
+    np.testing.assert_allclose(total, xr.astype(np.float64).sum(), rtol=0,
+                               atol=1e-4)
+    return check_path("merged-path", per), per
+
+
 def back_substitute(r, y):
     """Solve R x = y for upper-triangular R in float64: r (B, n, n), y
     (B, n) (examples/qrd_solver.py)."""
@@ -1356,12 +1434,14 @@ def golden_shapes():
                 shmem_depth=1024, imem_depth=cholesky_imem_depth(True),
                 max_steps=200_000)))[2]
 
-    def mixed(schedule):
+    def mixed(schedule, engine="step", packing="length", interleave=False,
+              priorities=None):
         return launch_fft_qrd(
             np.ones((6, 64), np.complex64),
             np.stack([np.eye(16, dtype=np.float32)] * 3),
             device=mixed_device(64, n_sms=4), schedule=schedule,
-            interleave=False, engine="step", packing="length")[3]
+            interleave=interleave, engine=engine, packing=packing,
+            priorities=priorities)[3]
 
     runs = {
         "saxpy256_b64[4sm]": (lambda: saxpy("megakernel"), "megakernel"),
@@ -1390,7 +1470,26 @@ def golden_shapes():
             lambda: mixed("static"), "step"),
         "mixed_fft_qrd[4sm,dynamic,packed,step-engine]": (
             lambda: mixed("dynamic"), "step"),
+        # the merged waves: "auto" resolves to the megakernel
+        "reduction1024_fused[4sm] (auto)": (lambda: launch_reduction(
+            np.ones(1024, np.float32), block=256, fused=True,
+            device=DeviceConfig(n_sms=4, global_mem_depth=2048,
+                                sm=SMConfig(max_steps=50_000)))[1],
+            "megakernel"),
+        "mixed_fft_qrd[4sm,dynamic,fifo-backloaded]": (
+            lambda: mixed("dynamic", None, None), "megakernel"),
+        "mixed_fft_qrd[4sm,dynamic,qrd-first]": (
+            lambda: mixed("dynamic", None, None, priorities=(0, 1)),
+            "megakernel"),
     }
+    for sched in ("static", "dynamic"):
+        runs[f"mixed_fft_qrd[4sm,{sched}]"] = (
+            lambda s=sched: mixed(s, None, None, True), "megakernel")
+        for eng in ("trace", "megakernel"):
+            runs[f"mixed_fft_qrd[4sm,{sched},{eng}-engine]"] = (
+                lambda s=sched, e=eng: mixed(s, e, None, True), eng)
+            runs[f"mixed_fft_qrd[4sm,{sched},packed,{eng}-engine]"] = (
+                lambda s=sched, e=eng: mixed(s, e), eng)
     for name, (fn, engine) in runs.items():
         res = fn()
         assert res.engine == engine, (name, res.engine)
@@ -1925,6 +2024,8 @@ def main() -> int:
     counts, per, keep = phases.run("step-path", lambda: step_path(rng))
     paths["step-path"] = (counts, per)
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
+    paths["merged-path"] = phases.run(
+        "merged-path", lambda: merged_path(np.random.default_rng(20261017)))
     per_row = phases.run("row-issue", lambda: {
         "main-path": row_issue("megakernel"),
         "step-path": row_issue("step"), "trace-path": row_issue("trace")})

@@ -13,6 +13,9 @@ Public API:
     run, run_many                          engine shims
     TraceSchedule, compile_program       — the trace engine
     MegakernelPlan, compile_megakernel   — the megakernel engine
+    MergedTraceSchedule, compile_merged, — heterogeneous waves on the
+    MergedMegakernelPlan,                  trace and megakernel engines
+    compile_merged_megakernel
     ExecBackend, execute_backends        — "cuda" (kernels on the card) and
                                            "cpu" (plain versions on the host)
     resources                            — Tables I/V + §III.E analytic model
@@ -44,8 +47,12 @@ from .scheduler import Schedule, schedule_blocks
 from .trace_engine import (
     ENGINES,
     MegakernelPlan,
+    MergedMegakernelPlan,
+    MergedTraceSchedule,
     TraceSchedule,
     compile_megakernel,
+    compile_merged,
+    compile_merged_megakernel,
     compile_program,
 )
 
@@ -60,7 +67,8 @@ __all__ = [
     "MachineState", "SMConfig", "init_state", "profile",
     "PACKINGS", "WavePacking", "pack_waves",
     "Schedule", "schedule_blocks",
-    "ENGINES", "MegakernelPlan", "TraceSchedule", "compile_megakernel",
-    "compile_program",
+    "ENGINES", "MegakernelPlan", "MergedMegakernelPlan",
+    "MergedTraceSchedule", "TraceSchedule", "compile_megakernel",
+    "compile_merged", "compile_merged_megakernel", "compile_program",
     "resources",
 ]

@@ -13,7 +13,10 @@ lockstep batch on a functional engine — the step engine (``run_wave``:
 fetch, decode and sequence on the host, the data path on the state's
 device), or the trace and megakernel engines of ``core.trace_engine`` —
 in a canonical program-major, block order, so they do not depend on the
-dispatch discipline.
+dispatch discipline. On the trace and megakernel engines a grid of
+several programs runs in merged waves instead: the wave packing decides
+which blocks share a wave, and each wave runs its programs side by side
+(``trace_engine.run_wave_merged`` / ``run_wave_merged_megakernel``).
 
 Global-memory semantics (the packed-sector memory model): reads (GLD) see
 the segment as of the start of the row; writes (GST) drain through the
@@ -66,10 +69,6 @@ from .machine import (
 )
 from .packing import PACKINGS, WavePacking, pack_waves
 from .scheduler import SCHEDULES, Schedule, schedule_blocks
-
-# the ROADMAP item that adds what the port still refuses
-_MERGED_ITEM = "ROADMAP queue A, item 3 (heterogeneous grids)"
-
 
 # ---------------------------------------------------------------------------
 # configuration + state
@@ -430,6 +429,7 @@ class LaunchResult:
     grid_map: np.ndarray | None = None  # (n_blocks,) block -> program idx
     timing: Schedule | None = None      # per-SM / per-block timeline
     static_cycles: int | None = None    # wave-schedule baseline makespan
+    trace_merge: dict[str, Any] | None = None  # merged-wave records
     packing: str = "grid"               # resolved wave-packing policy
     wave_packing: WavePacking | None = None  # the membership decision
     priority_respected: bool = True     # False iff Kernel(priority=) was
@@ -457,7 +457,9 @@ class LaunchResult:
     def profile(self) -> dict[str, Any]:
         """Aggregate cycle profile (Tables III/IV view + the GMEM row),
         extended with the scheduler's per-SM / per-program occupancy view
-        and the single global port's utilization."""
+        and the single global port's utilization. ``trace_merge`` appears
+        when a compiled engine ran merged waves: the packing policy, each
+        wave's padding and, on the megakernel, its fusion counts."""
         by = np.asarray(self.cycles_by_class)
         total = int(by.sum())
         out: dict[str, Any] = {
@@ -474,6 +476,8 @@ class LaunchResult:
             "pct_by_class": {n: (100.0 * int(c) / total if total else 0.0)
                              for n, c in zip(isa.CLASS_NAMES, by)},
         }
+        if self.trace_merge is not None:
+            out["trace_merge"] = self.trace_merge
         t = self.timing
         if t is None:
             return out
@@ -682,8 +686,9 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
       programs, grid_map: the multi-program form (``grid_map[b]`` names
         the program block ``b`` runs; BID is the block's index within its
         own program's grid, PID its program index). The step engine runs
-        a heterogeneous grid program-major; on the trace and megakernel
-        engines it raises (the merged waves are not ported yet).
+        a heterogeneous grid program-major; the trace and megakernel
+        engines run it in merged waves, the programs of each wave side by
+        side (``profile()["trace_merge"]`` reports each wave).
       buffers: named host arrays packed into global memory from offset 0 in
         insertion order (layout via ``buffer_layout``); mutually exclusive
         with ``gmem``, a raw initial global-memory image.
@@ -719,15 +724,12 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
     present = [k for k in range(len(kernels)) if (gmap == k).any()]
     # the step engine runs a heterogeneous grid program-major, as the
     # reference does; the compiled engines merge such grids into shared
-    # waves, which the port does not have yet
-    if eng != "step" and len(present) > 1:
-        raise NotImplementedError(
-            f"a heterogeneous grid on engine={eng!r} is not ported yet; see "
-            f"{_MERGED_ITEM}. engine='step' runs it program-major")
-    if eng == "trace":
+    # waves
+    use_merged = eng in ("trace", "megakernel") and len(present) > 1
+    if eng == "trace" and not use_merged:
         plans = {k: trace_engine.compile_program(word_arrays[k], cfgs[k])
                  for k in present}
-    elif eng == "megakernel":
+    elif eng == "megakernel" and not use_merged:
         plans = {k: trace_engine.compile_megakernel(word_arrays[k], cfgs[k])
                  for k in present}
     be = get_execute_backend(backend or dcfg.backend)
@@ -768,7 +770,7 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         gm = torch.zeros((dcfg.global_mem_depth,), dtype=torch.int32)
     gm = gm.to(device)
 
-    # ---- functional execution: exact lockstep batches, program-major -----
+    # ---- functional execution: exact lockstep batches ---------------------
     regs_slots: list[Any] = [None] * n_blocks
     shmem_slots: list[Any] = [None] * n_blocks
     oob_slots: list[Any] = [None] * n_blocks
@@ -776,45 +778,117 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
     machine_by = np.zeros((NUM_CLASSES,), np.int64)
     halted = True
     shmem_pad = dcfg.sm.shmem_depth
-    for k in present:
-        pos = np.flatnonzero(gmap == k)
-        cfg = cfgs[k]
-        sh_batch = _kernel_shmem(shmems[k], cfg.shmem_depth, pos.size, k)
-        if sh_batch is not None:
-            sh_batch = sh_batch.to(device)        # one upload per program
-        for w0 in range(0, pos.size, dcfg.n_sms):
-            w1 = min(w0 + dcfg.n_sms, pos.size)
-            n = w1 - w0
-            st = init_device_state(
-                cfg, n, gmem_depth=dcfg.global_mem_depth,
-                shmem=None if sh_batch is None else sh_batch[w0:w1],
-                gmem=gm, device=device)
-            # program-local BID, PID = k
-            bidx = torch.arange(w0, w1, dtype=torch.int32, device=device)
-            pidx = torch.full((n,), k, dtype=torch.int32, device=device)
-            if eng == "step":
-                fin = run_wave(cfg, be, *imems[k], bidx, pidx, st)
-            elif eng == "trace":
-                fin = trace_engine.run_wave_trace(cfg, be, plans[k], bidx,
-                                                  pidx, st)
+    merge_stats = None
+    if use_merged:
+        # each wave of the packing runs its programs side by side, members
+        # ordered slot-major (grid order within a slot); the slots are the
+        # wave's programs in index order, one merged plan per such set
+        local_bid = np.zeros(n_blocks, np.int64)
+        sh_batches: dict[int, Any] = {}
+        for k in present:
+            pos = np.flatnonzero(gmap == k)
+            local_bid[pos] = np.arange(pos.size)
+            sh = _kernel_shmem(shmems[k], cfgs[k].shmem_depth, pos.size, k)
+            sh_batches[k] = None if sh is None else sh.to(device)
+        plan_of: dict[tuple[int, ...], Any] = {}
+        run_merged = trace_engine.run_wave_merged_megakernel \
+            if eng == "megakernel" else trace_engine.run_wave_merged
+        per_wave: list[dict[str, Any]] = []
+        for wave_ids in wp.waves:
+            wave = np.asarray(wave_ids, np.int64)
+            sig = tuple(sorted({int(gmap[b]) for b in wave}))
+            if sig not in plan_of:
+                progs = [word_arrays[k] for k in sig]
+                cs = [cfgs[k] for k in sig]
+                plan_of[sig] = \
+                    trace_engine.compile_merged_megakernel(progs, cs) \
+                    if eng == "megakernel" \
+                    else trace_engine.compile_merged(progs, cs)
+            plan = plan_of[sig]
+            slot = np.asarray([sig.index(int(gmap[b])) for b in wave])
+            order = np.argsort(slot, kind="stable")
+            blocks, slot = wave[order], slot[order]
+            counts = np.bincount(slot, minlength=len(sig))
+            n = blocks.size
+            # each slot's shared-memory init, padded to the device depth
+            sh0, off = [], 0
+            for j, k in enumerate(sig):
+                c = int(counts[j])
+                if sh_batches[k] is None:
+                    sh0.append(torch.zeros((c, shmem_pad), dtype=torch.int32,
+                                           device=device))
+                else:
+                    img = sh_batches[k][torch.as_tensor(
+                        local_bid[blocks[off:off + c]], device=device)]
+                    sh0.append(torch.nn.functional.pad(
+                        img, (0, shmem_pad - img.shape[1])))
+                off += c
+            regs_f, sh_f, gm, oob_f = run_merged(
+                be, plan, counts, local_bid[blocks], gmap[blocks],
+                torch.zeros((n, MAX_THREADS, N_REGS), dtype=torch.int32,
+                            device=device),
+                torch.cat(sh0), gm,
+                torch.zeros((n,), dtype=torch.bool, device=device))
+            for i, b in enumerate(blocks):
+                regs_slots[b] = regs_f[i]
+                shmem_slots[b] = sh_f[i]
+                oob_slots[b] = oob_f[i]
+            halted = halted and plan.halted
+            rec = {"programs": [names[k] for k in sig], "width": int(n),
+                   "scan_steps": int(plan.n_steps)}
+            if eng == "megakernel":
+                # no padded row executes: the merge's cost across slots is
+                # the ordered global-port rows, reported as fusion counts
+                rec.update(padded_steps=0, pad_overhead=0.0,
+                           fusion=plan.stats())
             else:
-                fin = trace_engine.run_wave_megakernel(be, plans[k], bidx,
-                                                       pidx, st)
-            gm = fin.gmem               # batches run back to back
-            fin_shmem = fin.shmem
-            if cfg.shmem_depth < shmem_pad:
-                # per-Kernel shmem_depth override: pad back to the device
-                # depth so results still stack
-                fin_shmem = torch.nn.functional.pad(
-                    fin_shmem, (0, shmem_pad - cfg.shmem_depth))
-            for i, b in enumerate(pos[w0:w1]):
-                regs_slots[b] = fin.regs[i]
-                shmem_slots[b] = fin_shmem[i]
-                oob_slots[b] = fin.oob[i]
-            wave_cycles.append(int(fin.cycles))
-            wave_steps.append(int(fin.steps))
-            machine_by += fin.cycles_by_class
-            halted = halted and bool(fin.halted)
+                pad = int(plan.padded_steps(slot))
+                rows = int(plan.n_steps) * n
+                rec.update(padded_steps=pad,
+                           pad_overhead=(pad / rows) if rows else 0.0)
+            per_wave.append(rec)
+        merge_stats = trace_engine.merge_profile(per_wave, wp.policy)
+    else:
+        # one program per wave, program-major
+        for k in present:
+            pos = np.flatnonzero(gmap == k)
+            cfg = cfgs[k]
+            sh_batch = _kernel_shmem(shmems[k], cfg.shmem_depth, pos.size, k)
+            if sh_batch is not None:
+                sh_batch = sh_batch.to(device)        # one upload per program
+            for w0 in range(0, pos.size, dcfg.n_sms):
+                w1 = min(w0 + dcfg.n_sms, pos.size)
+                n = w1 - w0
+                st = init_device_state(
+                    cfg, n, gmem_depth=dcfg.global_mem_depth,
+                    shmem=None if sh_batch is None else sh_batch[w0:w1],
+                    gmem=gm, device=device)
+                # program-local BID, PID = k
+                bidx = torch.arange(w0, w1, dtype=torch.int32, device=device)
+                pidx = torch.full((n,), k, dtype=torch.int32, device=device)
+                if eng == "step":
+                    fin = run_wave(cfg, be, *imems[k], bidx, pidx, st)
+                elif eng == "trace":
+                    fin = trace_engine.run_wave_trace(cfg, be, plans[k], bidx,
+                                                      pidx, st)
+                else:
+                    fin = trace_engine.run_wave_megakernel(be, plans[k], bidx,
+                                                           pidx, st)
+                gm = fin.gmem               # batches run back to back
+                fin_shmem = fin.shmem
+                if cfg.shmem_depth < shmem_pad:
+                    # per-Kernel shmem_depth override: pad back to the device
+                    # depth so results still stack
+                    fin_shmem = torch.nn.functional.pad(
+                        fin_shmem, (0, shmem_pad - cfg.shmem_depth))
+                for i, b in enumerate(pos[w0:w1]):
+                    regs_slots[b] = fin.regs[i]
+                    shmem_slots[b] = fin_shmem[i]
+                    oob_slots[b] = fin.oob[i]
+                wave_cycles.append(int(fin.cycles))
+                wave_steps.append(int(fin.steps))
+                machine_by += fin.cycles_by_class
+                halted = halted and bool(fin.halted)
 
     # ---- aggregate counters ---------------------------------------------
     if mode == "static" and len(kernels) == 1:
@@ -854,6 +928,7 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         grid_map=gmap,
         timing=timing,
         static_cycles=static_span,
+        trace_merge=merge_stats,
         packing=wp.policy,
         wave_packing=wp,
         priority_respected=priority_respected,

@@ -24,6 +24,9 @@ This module holds the execute stage of every engine:
     ``segment`` CUDA kernel is held against, and the CPU path of
     ``kernels.simt_step.simt_segment``;
   * ``exec_segment`` — a fused run through the segment kernel;
+  * ``FusedSegment`` / ``eval_segment_rows`` — the plan-time partial
+    evaluator: which rows of a segment fold away on zeroed registers (the
+    megakernel plans' fold counts; execution runs the raw rows);
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
     kernels) and ``"cpu"`` (tensors on the host, their plain versions),
     each with the row seam ``alu_row``/``lod_row``/``sto_row``/
@@ -330,11 +333,174 @@ def exec_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
                  oob, *, shmem_depth: int | None = None, barriers=None):
     """Run one fused segment through the segment kernel (the CUDA kernel
     for tensors on the card, its plain version for tensors on the host).
-    ``rows`` is the segment's row table and ``barriers`` its
-    ``segment_barriers`` bits, already on the state's device."""
+    ``rows`` is the segment's raw row table (a ``FusedSegment``'s
+    ``rows``, packed) and ``barriers`` its ``segment_barriers`` bits,
+    already on the state's device."""
     return simt_step.simt_segment(cfg, rows, block_idx, prog_idx, regs,
                                   shmem, oob, shmem_depth=shmem_depth,
                                   barriers=barriers)
+
+
+# ---------------------------------------------------------------------------
+# plan-time partial evaluation (the megakernel plan's fold counts)
+# ---------------------------------------------------------------------------
+#
+# Every wave of a launch starts from zeroed registers
+# (``device.init_device_state``) and the ISA has no data-dependent control
+# flow, so at plan time, on the host, exact register-column values can be
+# threaded through a segment's rows. A column stays known (a concrete
+# (512,) value) until a memory load or a runtime operand makes it
+# runtime. A row whose operands and destination are all known folds away:
+# ``_fold_row`` evaluates it with the same ``_apply_row_cols`` body. A
+# LOD or STO row with a known address column resolves its addresses on
+# the host. The result is the reference's ``FusedSegment``: its fold
+# count is what ``profile()["trace_merge"]["fusion"]`` reports. Execution
+# does not use the residual: the segment kernel and its plain version run
+# the raw rows, from any state (the residual holds only under the
+# zero-init contract).
+
+@dataclasses.dataclass(frozen=True)
+class FusedSegment:
+    """One fused segment: the raw row run plus its partial evaluation.
+
+    ``rows`` is what executes; ``residual`` the ops left after plan-time
+    folding, each ``(kind, row, data, consts)`` with host-resolved
+    addresses for static LOD/STO rows; ``final_consts`` the register
+    columns fully known at segment end; ``n_folded`` the rows evaluated
+    away entirely."""
+
+    rows: tuple                # FusedRow run
+    residual: tuple            # (kind, row, data, consts) residual ops
+    final_consts: tuple        # ((reg, (512,) np.uint32), ...)
+    n_folded: int              # rows evaluated away at plan time
+
+
+# register indices each handler reads (operands + read-modify-write dest)
+_ROW_READS = {1: ("ra", "rb", "rd"), 2: ("ra", "rd"), 3: ("ra", "rd"),
+              4: ("rd",), 5: ("rd",), 6: ("ra", "rb", "rd"),
+              7: ("ra", "rd"), 10: ("ra", "rb", "rd"),
+              11: ("ra", "rb", "rd")}
+
+
+def _row_mask(n_threads: int, row: FusedRow) -> np.ndarray:
+    """The row's (512,) flexible-ISA thread mask, on the host."""
+    tid = np.arange(MAX_THREADS)
+    return ((tid % N_SP < row.act_wthreads) & (tid // N_SP < row.act_waves)
+            & (tid < n_threads))
+
+
+def _fold_row(cfg, row: FusedRow, const_cols, depth: int) -> np.ndarray:
+    """Evaluate one fully known row on the host: the same
+    ``_apply_row_cols`` body on (1, 512) tiles of the known columns (zeros
+    for runtime ones); returns the new destination column. The port
+    rounds every instruction, so a folded word is the word the raw row
+    gives."""
+    cols = [torch.from_numpy(c.view(np.int32).copy())[None]
+            if c is not None
+            else torch.zeros((1, MAX_THREADS), dtype=torch.int32)
+            for c in const_cols]
+    z = torch.zeros((1,), dtype=torch.int32)
+    cols, _, _ = _apply_row_cols(
+        cfg, row, cols, torch.zeros((1, 1), dtype=torch.int32),
+        torch.zeros((1,), dtype=torch.bool), z, z, depth)
+    return cols[row.d["rd"]][0].numpy().view(np.uint32).copy()
+
+
+def _fold_addr(cfg, row: FusedRow, a_col: np.ndarray, depth: int):
+    """Resolve a LOD/STO address column on the host: (clipped addresses,
+    enabled-thread mask, any-trap flag), the runtime handlers' clip, trap
+    and mask formulas on the known column."""
+    a_u = np.asarray(a_col)
+    if row.d["x"] == 1:                            # snoop gather
+        lane = np.arange(MAX_THREADS) % N_SP
+        a_u = a_u[row.d["ext_a"] * N_SP + lane]
+    addr = a_u.astype(np.int32) + row.d["imm"]
+    active = _row_mask(cfg.n_threads, row)
+    bad = active & ((addr < 0) | (addr >= depth))
+    safe = np.clip(addr, 0, depth - 1).astype(np.int32)
+    return safe, (active & ~bad), bool(bad.any())
+
+
+def eval_segment_rows(cfg, rows, const_cols, depth: int):
+    """Partially evaluate one fused segment (host, plan time).
+
+    ``const_cols`` is the per-register known-value state entering the
+    segment (a list of (512,) np.uint32 columns, None for runtime).
+    Returns ``(FusedSegment, const_cols_out)``; every residual op carries
+    the known columns it reads that changed since segment entry."""
+    const_cols = list(const_cols)
+    dirty: set[int] = set()
+    residual = []
+    n_folded = 0
+
+    def consts_for(regs):
+        return tuple((r, const_cols[r]) for r in sorted(set(regs))
+                     if const_cols[r] is not None and r in dirty)
+
+    # every write mask includes ``tid < n_threads`` and registers start
+    # zeroed, so lanes >= n_threads stay zero through the whole run: a
+    # row whose mask covers all of [0, n_threads) determines its
+    # destination even when the old column is runtime
+    full_mask = np.arange(MAX_THREADS) < cfg.n_threads
+
+    for row in rows:
+        sel, d = row.sel, row.d
+        rd, ra, rb = d["rd"], d["ra"], d["rb"]
+        op, pen = d["opcode"], d["pen"]
+        known = [c is not None for c in const_cols]
+        w_all = known[rd] or np.array_equal(_row_mask(cfg.n_threads, row),
+                                            full_mask)
+
+        # a predicated row may write: which lanes commit depends on a
+        # runtime register, so it never folds and its destination goes
+        # runtime below
+        foldable = not pen and (
+            (sel == 1 and known[ra] and known[rb] and w_all)
+            or (sel == 4 and w_all)
+            or (sel == 5 and op in (int(Op.TDX), int(Op.TDY)) and w_all)
+            or (sel == 6 and known[ra] and known[rb] and known[rd])
+            or (sel == 7 and known[ra] and known[rd])
+            or (sel in (10, 11) and known[ra] and known[rb] and w_all))
+        if foldable:
+            const_cols[rd] = _fold_row(cfg, row, const_cols, depth)
+            dirty.add(rd)
+            n_folded += 1
+            continue
+
+        if sel == 2 and known[ra] and not pen:     # static-address LOD
+            safe, mask, bad_any = _fold_addr(cfg, row, const_cols[ra], depth)
+            residual.append(("lod", row, (safe, mask, bad_any),
+                             consts_for((rd,))))
+            const_cols[rd] = None
+            continue
+
+        if sel == 3 and known[ra] and not pen:     # static-address STO
+            safe, do, bad_any = _fold_addr(cfg, row, const_cols[ra], depth)
+            # the single port's arbitration on the host: in thread order,
+            # the last enabled writer of an address wins
+            win: dict[int, int] = {}
+            for t in np.flatnonzero(do):
+                win[int(safe[t])] = int(t)
+            targets = np.array(sorted(win), np.int32)
+            winners = np.array([win[a] for a in sorted(win)], np.int32)
+            residual.append(("sto", row, (targets, winners, bad_any),
+                             consts_for((rd,))))
+            continue
+
+        # a runtime row (its known operands materialize as literals)
+        reads = tuple({"ra": ra, "rb": rb, "rd": rd}[f]
+                      for f in _ROW_READS[sel])
+        if pen:
+            reads = reads + (d["preg"],)           # the guard is a read
+        residual.append(("exec", row, None, consts_for(reads)))
+        if sel != 3:                               # STO writes no register
+            const_cols[rd] = None
+
+    final = tuple((r, const_cols[r]) for r in sorted(dirty)
+                  if const_cols[r] is not None)
+    return (FusedSegment(rows=tuple(rows), residual=tuple(residual),
+                         final_consts=final, n_folded=n_folded),
+            const_cols)
 
 
 def _last_writer_write(mem, addr, vals, do):

@@ -12,11 +12,12 @@ This is the canonical heterogeneous-launch demo: the acceptance test and
 the benchmark smoke both drive it, and ``LaunchResult.profile()`` shows
 non-zero per-SM occupancy for both programs.
 
-Functionally the launch runs on the step engine, program-major: every
-wave holds blocks of one program (the merged heterogeneous waves of the
-trace and megakernel engines are not ported; ROADMAP queue A, item 3).
-Timing comes from the static traces either way, so the cycle counters
-are the same on every engine.
+Functionally the launch runs in merged waves on the trace and megakernel
+engines (``"auto"`` resolves to the megakernel): a wave holds blocks of
+both programs, each program's rows running on its own SMs
+(``profile()["trace_merge"]`` reports each wave). The step engine runs
+it program-major. Timing comes from the static traces either way, so the
+cycle counters are the same on every engine.
 """
 from __future__ import annotations
 
@@ -57,9 +58,10 @@ def launch_fft_qrd(xs: np.ndarray, As: np.ndarray,
     (fft, qrd) ``Kernel.priority`` pair for the dynamic dispatch queue —
     e.g. ``(0, 1)`` drains the long QRD blocks first so they don't
     straggle behind a queue of short FFTs. ``engine`` forwards to
-    ``launch`` ("step", or None for the device default), as does
-    ``packing`` ("grid" | "length" | "auto"), which shapes the timing
-    model's waves.
+    ``launch`` ("step", "trace", "megakernel", or None for the device
+    default), as does ``packing`` ("grid" | "length" | "auto"), which
+    decides which blocks share a wave: the merged waves that run and the
+    timing model's waves alike.
     """
     xs, As = np.asarray(xs), np.asarray(As)
     batch_f, n = int(xs.shape[0]), int(xs.shape[1])

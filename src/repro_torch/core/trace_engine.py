@@ -22,6 +22,17 @@ seam, one launch in place. The plan places each segment's barriers once
 (``kernels.simt_step.segment_barriers``); its packed row table and the
 barrier bits are uploaded to a device once and kept with the plan.
 
+A heterogeneous grid (blocks of several programs) runs in merged waves
+on both engines. ``compile_merged`` / ``run_wave_merged`` run each live
+program slot's schedule row by row, slot by slot, on that slot's SMs,
+split at each program's end so no padded row executes;
+``compile_merged_megakernel`` / ``run_wave_merged_megakernel`` fuse each
+slot's runs as its own plan does and order only the global-port rows,
+by (schedule row, slot). ``merge_profile`` gives
+``profile()["trace_merge"]``: the reference's padding counts and, on the
+megakernel, the fold counts of the plan-time partial evaluator
+(``executor.eval_segment_rows``).
+
 Cycle counters never come from execution: they are the static trace's
 (``trace.static_cycles`` / ``cycles_by_class``), which the golden-cycle
 suite pins.
@@ -42,11 +53,12 @@ from .executor import (
     ExecBackend,
     FusedRow,
     _decode,
+    eval_segment_rows,
     exec_segment,
     make_data_handlers,
 )
-from .isa import NUM_CLASSES
-from .machine import SMConfig
+from .isa import NUM_CLASSES, Op
+from .machine import MAX_THREADS, N_REGS, SMConfig
 from ..kernels.simt_step import segment_barriers
 
 ENGINES = ("step", "trace", "megakernel")
@@ -241,13 +253,50 @@ def _segment_items(rows) -> tuple:
     return tuple(items)
 
 
+def _partial_eval_items(items, rows, cfg: SMConfig, depth: int) -> tuple:
+    """Run the plan-time partial evaluator over one program's item list:
+    register-column constant state, from the zeroed registers every wave
+    starts with, threaded through the items in execution order. Returns
+    the ``executor.FusedSegment`` of each fused item, in order. A GLD row
+    makes its destination runtime; GST only reads.
+
+    The reference threads one such state per program slot through a
+    merged plan; a slot's state sees only its own rows, so a merged plan
+    takes each slot's segments from that program's own plan."""
+    cols = [np.zeros(MAX_THREADS, np.uint32)] * N_REGS
+    segments = []
+    for kind, payload in items:
+        if kind == "fused":
+            start, stop = payload
+            seg, cols = eval_segment_rows(cfg, rows[start:stop], cols, depth)
+            segments.append(seg)
+        elif payload.sel == _GLD_SEL:              # GLD: rd now runtime
+            cols = list(cols)
+            cols[payload.d["rd"]] = None
+    return tuple(segments)
+
+
+def _fusion_stats(items, segments) -> dict:
+    """A plan's fusion counts, as ``profile()["trace_merge"]["fusion"]``
+    reports them per wave."""
+    return {
+        "segments": len(segments),
+        "fused_rows": sum(len(s.rows) for s in segments),
+        "folded_rows": sum(s.n_folded for s in segments),
+        "gmem_rows": sum(1 for it in items if it[0] == "gmem"),
+        "max_fused_run": max((len(s.rows) for s in segments), default=0),
+    }
+
+
 @dataclasses.dataclass(frozen=True)
 class MegakernelPlan:
     """One program lowered to fused segments (megakernel engine unit).
 
     ``items`` is the ordered execution plan; ``sched`` keeps the
     underlying trace schedule, whose row table the fused items index, and
-    the timing model's trace. ``barriers`` holds each fused item's
+    the timing model's trace. ``segments`` holds each fused item's
+    partial evaluation (``executor.FusedSegment``), whose fold counts
+    ``stats()`` reports. ``barriers`` holds each fused item's
     ``segment_barriers`` bits at its rows of that table (0 at global-port
     rows). ``device_table`` and ``device_barriers`` upload the two to a
     device once and keep them with the plan."""
@@ -256,6 +305,7 @@ class MegakernelPlan:
     cfg: SMConfig
     sched: TraceSchedule
     items: tuple
+    segments: tuple            # FusedSegment per fused item
     barriers: np.ndarray       # (n_steps,) int32
     _tables: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
@@ -263,6 +313,9 @@ class MegakernelPlan:
     @property
     def halted(self) -> bool:
         return self.sched.halted
+
+    def stats(self) -> dict:
+        return _fusion_stats(self.items, self.segments)
 
     def _upload(self, name: str, host: np.ndarray, device) -> torch.Tensor:
         key = (name, str(device))
@@ -288,8 +341,9 @@ def _megakernel_cached(words_key: tuple, cfg: SMConfig) -> MegakernelPlan:
         if kind == "fused":
             start, stop = payload
             barriers[start:stop] = segment_barriers(table[start:stop])
+    segments = _partial_eval_items(items, sched.rows, cfg, cfg.shmem_depth)
     return MegakernelPlan(key=words_key, cfg=cfg, sched=sched, items=items,
-                          barriers=barriers)
+                          segments=segments, barriers=barriers)
 
 
 def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
@@ -337,3 +391,305 @@ def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
         state, regs=regs, shmem=shmem, gmem=gmem, oob=oob,
         **_static_counters(state, plan.sched.trace,
                            plan.sched.cycles_by_class(n)))
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous waves: several programs' blocks in one wave
+# ---------------------------------------------------------------------------
+#
+# A merged wave holds blocks of several programs, ordered slot-major:
+# ``counts[k]`` consecutive SMs run program slot ``k``. At the start of a
+# wave each slot's registers, shared memory and oob flags are copied once
+# into tensors of its own (contiguous, at offset 0), the slots share the
+# one global-memory image (copied once if a slot's rows store into it),
+# and the slots are concatenated at the end of the wave. Every launch
+# runs on one stream, in the order the plan gives: the rows of different
+# slots touch disjoint per-SM state, and the global port's rows keep the
+# reference's (schedule row, slot) order.
+
+def _reads_wave_index(row: FusedRow) -> bool:
+    """Whether the row reads the wave's BID/PID vectors (the one handler
+    input that changes from wave to wave)."""
+    return row.sel == 5 and row.d["opcode"] in (int(Op.BID), int(Op.PID))
+
+
+def _slot_data(regs, shmem, oob, offs) -> list:
+    """Each slot's own ``[regs, shmem, oob]``: copies of its rows of the
+    wave's state."""
+    return [[_own(t[lo:hi]) for t in (regs, shmem, oob)]
+            for lo, hi in zip(offs[:-1], offs[1:])]
+
+
+def _slot_index(block_idx, prog_idx, offs, device) -> list:
+    """Each slot's own ``(bidx, pidx)``: copies of its SMs' BID/PID."""
+    bidx = _wave_index(block_idx, device)
+    pidx = _wave_index(prog_idx, device)
+    return [(_own(bidx[lo:hi]), _own(pidx[lo:hi]))
+            for lo, hi in zip(offs[:-1], offs[1:])]
+
+
+def _join_slots(slots, gmem) -> tuple:
+    """The wave's ``(regs, shmem, gmem, oob)`` from its slots' data."""
+    regs, shmem, oob = (torch.cat([s[i] for s in slots]) for i in range(3))
+    return regs, shmem, gmem, oob
+
+
+def _slot_offsets(counts) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MergedTraceSchedule:
+    """Several programs' schedules merged for one heterogeneous wave.
+
+    The reference stacks the schedules into one scan padded to the
+    longest participant. Here each scan segment ``(start, end, live
+    slots)`` runs rows ``start..end`` of every live slot, row by row and
+    slot by slot; the schedule is split at each program's end, so the
+    padded rows of a finished program are never executed."""
+
+    cfgs: tuple[SMConfig, ...]          # per program slot
+    parts: tuple[TraceSchedule, ...]    # the merged per-program schedules
+    segments: tuple[tuple[int, int, tuple[int, ...]], ...]
+    _handlers: dict = dataclasses.field(default_factory=dict, compare=False,
+                                        repr=False)
+
+    @property
+    def n_steps(self) -> int:
+        return max(p.n_steps for p in self.parts)
+
+    @property
+    def n_programs(self) -> int:
+        return len(self.parts)
+
+    @property
+    def halted(self) -> bool:
+        return all(p.halted for p in self.parts)
+
+    @property
+    def stores_gmem(self) -> bool:
+        return any(p.stores_gmem for p in self.parts)
+
+    def padded_steps(self, slot_idx) -> int:
+        """Scan rows during which a wave member's program is already
+        finished, for a wave running the slots in ``slot_idx``: the
+        merge's padding overhead, as the reference counts it."""
+        return sum(self.n_steps - self.parts[int(s)].n_steps
+                   for s in slot_idx)
+
+    def handlers(self, backend: ExecBackend, k: int) -> list:
+        """Slot ``k``'s handler of each row, built once per backend (None
+        for a BID/PID row, whose handler takes the wave's indices)."""
+        key = (backend, k)
+        if key not in self._handlers:
+            cfg = self.cfgs[k]
+            self._handlers[key] = [
+                None if _reads_wave_index(r) else make_data_handlers(
+                    cfg, backend, r, None, None,
+                    shmem_depth=cfg.shmem_depth)[r.sel]
+                for r in self.parts[k].rows]
+        return self._handlers[key]
+
+
+def merge_profile(per_wave: list, policy: str) -> dict:
+    """Aggregate the per-wave merge records into the
+    ``LaunchResult.profile()["trace_merge"]`` dict.
+
+    ``per_wave`` entries carry each wave's ``scan_steps`` (merged
+    schedule rows), ``width`` (members) and ``padded_steps`` (rows of
+    members shorter than the wave's longest participant). ``policy`` is
+    the resolved wave-packing policy. ``pad_overhead_total`` is the sum
+    of the per-wave ``padded_steps``; ``pad_overhead`` that total as a
+    fraction of all scheduled scan rows. Megakernel waves also carry
+    fusion counts, summed (and their longest run taken) launch-wide."""
+    scanned = sum(w["scan_steps"] * w["width"] for w in per_wave)
+    padded = sum(w["padded_steps"] for w in per_wave)
+    out = {
+        "policy": policy,
+        "n_waves": len(per_wave),
+        "scan_steps": scanned,
+        "pad_overhead_total": padded,
+        "pad_overhead": (padded / scanned) if scanned else 0.0,
+        "per_wave": per_wave,
+    }
+    fus = [w["fusion"] for w in per_wave if "fusion" in w]
+    if fus:
+        out["fusion"] = {
+            "segments": sum(f["segments"] for f in fus),
+            "fused_rows": sum(f["fused_rows"] for f in fus),
+            "folded_rows": sum(f["folded_rows"] for f in fus),
+            "gmem_rows": sum(f["gmem_rows"] for f in fus),
+            "max_fused_run": max(f["max_fused_run"] for f in fus),
+        }
+    return out
+
+
+def _program_keys(programs) -> tuple:
+    return tuple(tuple(int(w) for w in (p.words if hasattr(p, "words")
+                                        else p))
+                 for p in programs)
+
+
+@functools.lru_cache(maxsize=256)
+def _merge_cached(keys: tuple, cfgs: tuple) -> MergedTraceSchedule:
+    parts = tuple(_compile_cached(k, c) for k, c in zip(keys, cfgs))
+    bounds = sorted({p.n_steps for p in parts} | {0})
+    segments = tuple(
+        (a, b, tuple(k for k, p in enumerate(parts) if p.n_steps >= b))
+        for a, b in zip(bounds[:-1], bounds[1:]))
+    return MergedTraceSchedule(cfgs=cfgs, parts=parts, segments=segments)
+
+
+def compile_merged(programs, cfgs) -> MergedTraceSchedule:
+    """Merge the schedules of ``programs`` (Programs or word arrays, one
+    per ``SMConfig`` in ``cfgs``, in slot order) for heterogeneous waves;
+    cached, sharing ``compile_program``'s schedules."""
+    return _merge_cached(_program_keys(programs), tuple(cfgs))
+
+
+def run_wave_merged(backend: ExecBackend, msched: MergedTraceSchedule,
+                    counts, block_idx, prog_idx, regs, shmem, gmem, oob):
+    """Run one heterogeneous wave on the trace engine. Wave members are
+    ordered slot-major (``counts[k]`` SMs per slot); ``block_idx``/
+    ``prog_idx`` carry each SM's program-local BID and its PID.
+    ``shmem`` has the device's depth; each slot bounds its LOD/STO
+    addresses at its own ``cfg.shmem_depth``. At each row of a scan
+    segment every live slot dispatches its own row, in slot order, on its
+    own SMs. The inputs are not written; returns the new ``(regs, shmem,
+    gmem, oob)``."""
+    offs = _slot_offsets(counts)
+    slots = _slot_data(regs, shmem, oob, offs)
+    index = _slot_index(block_idx, prog_idx, offs, regs.device)
+    if msched.stores_gmem:
+        gmem = _own(gmem)
+    handlers = [msched.handlers(backend, k) for k in range(len(slots))]
+    for a, b, live in msched.segments:
+        for i in range(a, b):
+            for k in live:
+                h = handlers[k][i]
+                if h is None:
+                    cfg, row = msched.cfgs[k], msched.parts[k].rows[i]
+                    h = make_data_handlers(
+                        cfg, backend, row, *index[k],
+                        shmem_depth=cfg.shmem_depth)[row.sel]
+                r, s, o = slots[k]
+                r, s, gmem, o = h((r, s, gmem, o))
+                slots[k] = [r, s, o]
+    return _join_slots(slots, gmem)
+
+
+@dataclasses.dataclass(frozen=True)
+class MergedMegakernelPlan:
+    """A heterogeneous wave's fused-segment plan.
+
+    There is no padding: each slot's rows fuse independently, exactly as
+    that program's own ``MegakernelPlan`` fuses them (``plans``), and
+    only the global-port rows take a global order: ``(schedule row,
+    slot)``, the merged scan's dispatch order. ``items`` are
+    ``("fused", k, (start, stop))`` (rows of slot ``k``'s table) and
+    ``("gmem", k, row)``."""
+
+    keys: tuple                # per-slot program words
+    cfgs: tuple[SMConfig, ...]
+    plans: tuple[MegakernelPlan, ...]
+    items: tuple
+    segments: tuple            # FusedSegment per fused item
+    _handlers: dict = dataclasses.field(default_factory=dict, compare=False,
+                                        repr=False)
+
+    @property
+    def halted(self) -> bool:
+        return all(p.halted for p in self.plans)
+
+    @property
+    def n_steps(self) -> int:
+        """The longest participant's schedule (the merged scan's row
+        count, kept for the profile; no padded row executes)."""
+        return max((p.sched.n_steps for p in self.plans), default=0)
+
+    @property
+    def stores_gmem(self) -> bool:
+        return any(p.sched.stores_gmem for p in self.plans)
+
+    def stats(self) -> dict:
+        return _fusion_stats(self.items, self.segments)
+
+    def gmem_handlers(self, backend: ExecBackend) -> list:
+        """The handler of each global-port item (None at fused items),
+        built once per backend."""
+        if backend not in self._handlers:
+            self._handlers[backend] = [
+                make_data_handlers(
+                    self.cfgs[k], backend, p, None, None,
+                    shmem_depth=self.cfgs[k].shmem_depth)[p.sel]
+                if kind == "gmem" else None
+                for kind, k, p in self.items]
+        return self._handlers[backend]
+
+
+@functools.lru_cache(maxsize=256)
+def _merged_megakernel_cached(keys: tuple, cfgs: tuple
+                              ) -> MergedMegakernelPlan:
+    plans = tuple(_megakernel_cached(k, c) for k, c in zip(keys, cfgs))
+    rows = [p.sched.rows for p in plans]
+    # the global-port rows drain in the merged scan's order, (schedule
+    # row, slot); between them, different slots' rows touch disjoint
+    # per-SM state and commute, so each slot's run fuses up to its next
+    # global-port row, as in its own plan
+    events = sorted((i, k) for k, rs in enumerate(rows)
+                    for i, r in enumerate(rs) if r.sel in _GMEM_SELS)
+    cursor = [0] * len(plans)
+    items = []
+    for i, k in events:
+        if cursor[k] < i:
+            items.append(("fused", k, (cursor[k], i)))
+        items.append(("gmem", k, rows[k][i]))
+        cursor[k] = i + 1
+    for k, rs in enumerate(rows):
+        if cursor[k] < len(rs):
+            items.append(("fused", k, (cursor[k], len(rs))))
+    seg_of = [dict(zip((p for kind, p in plan.items if kind == "fused"),
+                       plan.segments)) for plan in plans]
+    segments = tuple(seg_of[k][p] for kind, k, p in items if kind == "fused")
+    return MergedMegakernelPlan(keys=keys, cfgs=cfgs, plans=plans,
+                                items=tuple(items), segments=segments)
+
+
+def compile_merged_megakernel(programs, cfgs) -> MergedMegakernelPlan:
+    """Megakernel counterpart of ``compile_merged``: fuse each slot's
+    segments, ordering only the global-port rows across slots."""
+    return _merged_megakernel_cached(_program_keys(programs), tuple(cfgs))
+
+
+def run_wave_merged_megakernel(backend: ExecBackend,
+                               mplan: MergedMegakernelPlan, counts,
+                               block_idx, prog_idx, regs, shmem, gmem, oob):
+    """Run one heterogeneous wave on the megakernel engine, with the
+    member order of ``run_wave_merged``. A fused item of slot ``k`` is
+    one segment launch on slot ``k``'s SMs, with its program's row table
+    and barrier bits (uploaded once per device, kept with its plan); a
+    global-port item runs the GLD or GST row seam on the same SMs. The
+    inputs are not written; returns the new ``(regs, shmem, gmem,
+    oob)``."""
+    device = regs.device
+    offs = _slot_offsets(counts)
+    slots = _slot_data(regs, shmem, oob, offs)
+    index = _slot_index(block_idx, prog_idx, offs, device)
+    tables = [(p.device_table(device), p.device_barriers(device))
+              for p in mplan.plans]
+    if mplan.stores_gmem:
+        gmem = _own(gmem)
+    handlers = mplan.gmem_handlers(backend)
+    for h, (kind, k, payload) in zip(handlers, mplan.items):
+        r, s, o = slots[k]
+        if kind == "fused":
+            start, stop = payload
+            table, barriers = tables[k]
+            r, s, o = exec_segment(
+                mplan.cfgs[k], table[start:stop], *index[k], r, s, o,
+                shmem_depth=mplan.cfgs[k].shmem_depth,
+                barriers=barriers[start:stop])
+        else:
+            r, s, gmem, o = h((r, s, gmem, o))
+        slots[k] = [r, s, o]
+    return _join_slots(slots, gmem)

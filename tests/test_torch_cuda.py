@@ -447,6 +447,67 @@ def test_launches_on_the_card_leave_the_callers_gmem_unchanged(dev, engine):
                                rtol=1e-6)
 
 
+def _merged_launches():
+    """Heterogeneous grids for the merged engines: FFT-64 x 6 beside
+    QRD-16 x 3 on four SMs (grid order and length packing), and the fused
+    two-stage reduction of 1024 elements (one program per wave, merged
+    all the same)."""
+    from repro_torch.core import DeviceConfig
+    from repro_torch.core.programs import (launch_fft_qrd,
+                                           launch_reduction, mixed_device)
+
+    rng = np.random.default_rng(21)
+    xs = (rng.standard_normal((6, 64))
+          + 1j * rng.standard_normal((6, 64))).astype(np.complex64)
+    As = rng.standard_normal((3, 16, 16)).astype(np.float32)
+    x = rng.standard_normal(1024).astype(np.float32)
+
+    def mixed(packing):
+        return lambda engine, backend: launch_fft_qrd(
+            xs, As, device=dataclasses.replace(
+                mixed_device(64, n_sms=4, backend=backend), engine=engine),
+            packing=packing)[3]
+
+    def fused(engine, backend):
+        return launch_reduction(x, block=256, fused=True, device=DeviceConfig(
+            n_sms=4, global_mem_depth=2048, engine=engine, backend=backend,
+            sm=SMConfig(max_steps=50_000)))[1]
+
+    return {"fft64_qrd16": mixed("grid"),
+            "fft64_qrd16_length": mixed("length"),
+            "reduction1024_fused": fused}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["trace", "megakernel"])
+@pytest.mark.parametrize("name", ["fft64_qrd16", "fft64_qrd16_length",
+                                  "reduction1024_fused"])
+def test_merged_waves_on_the_card_match_the_plain_versions(dev, engine,
+                                                           name):
+    from repro_torch.convert import launch_result_to_numpy
+
+    run_launch = _merged_launches()[name]
+    build.reset_launches()
+    got = run_launch(engine, "cuda")
+    torch.cuda.synchronize()
+    launched = dict(build.launches)
+    want = run_launch(engine, "cpu")
+    assert got.engine == engine and got.trace_merge is not None
+    g, w = launch_result_to_numpy(got), launch_result_to_numpy(want)
+    for k in ("regs", "shmem", "gmem", "oob"):
+        assert np.array_equal(g[k], w[k]), k
+    assert got.profile() == want.profile()
+    # FFT and QRD hold no global-port row; the reduction's stages load
+    # their inputs and store their partials through it
+    kernels = ("segment",) if engine == "megakernel" \
+        else ("alu", "gather", "scatter")
+    if name == "reduction1024_fused":
+        kernels = ("gather_shared", "scatter_shared") + (
+            ("segment",) if engine == "megakernel" else ("alu",))
+    for k in kernels:
+        assert launched[k] > 0, (k, launched)
+
+
 # ---------------------------------------------------------------------------
 # the kernel layer: wavefront_dot, fft_r2, mgs_qrd, flash_attention
 # ---------------------------------------------------------------------------

@@ -155,9 +155,17 @@ def test_engines_outside_the_slice_raise():
                  engine="step")
     assert res.engine == "step" and res.halted
     assert res.program_names == ("k0", "k1")
-    # a heterogeneous grid on the compiled engines needs the merged waves
-    # of a later slice
+    # the compiled engines run it in merged waves, to the step engine's
+    # state
+    step = launch_result_to_numpy(res)
     for engine in ("trace", "megakernel"):
-        with pytest.raises(NotImplementedError, match="heterogeneous"):
-            launch(dev, programs=mixed, grid_map=[0, 1], buffers=buffers,
-                   engine=engine)
+        got = launch(dev, programs=mixed, grid_map=[0, 1], buffers=buffers,
+                     engine=engine)
+        assert got.engine == engine and got.halted
+        merge = got.profile()["trace_merge"]
+        assert merge["n_waves"] == 1
+        assert merge["per_wave"][0]["programs"] == ["k0", "k1"]
+        assert ("fusion" in merge) == (engine == "megakernel")
+        got = launch_result_to_numpy(got)
+        for k in ("regs", "shmem", "gmem", "oob"):
+            assert np.array_equal(got[k], step[k]), (engine, k)

@@ -1,8 +1,9 @@
-"""The step and trace engines end to end: the port's launches
-(``backend="cpu"``, the kernels' plain versions) against the JAX
-reference's same engine on its inline backend, over the cases of
-``tests/engine_conformance.py``, plus the single-SM shims and a
-fuel-limited program.
+"""The step and trace engines end to end, and the merged waves of the
+trace and megakernel engines: the port's launches (``backend="cpu"``, the
+kernels' plain versions) against the JAX reference's same engine on its
+inline backend, over the cases of ``tests/engine_conformance.py`` (the
+heterogeneous ones under both wave packings), plus the single-SM shims
+and a fuel-limited program.
 
 Every case agrees on every word, flag, counter and profile field, except
 that QRD and Cholesky FP32 words agree within ``FP_ATOL``: the reference
@@ -55,9 +56,10 @@ def _saxpy(engine, schedule, n_sms):
                         schedule=schedule)[1]
 
 
-def _reduction_fused(engine, schedule, n_sms):
+def _reduction_fused(engine, schedule, n_sms, packing="grid"):
     dev = DeviceConfig(n_sms=n_sms, global_mem_depth=1024, engine=engine,
-                       backend="cpu", sm=SMConfig(max_steps=50_000))
+                       backend="cpu", packing=packing,
+                       sm=SMConfig(max_steps=50_000))
     return launch_reduction(np.arange(256, dtype=np.float32), device=dev,
                             block=64, fused=True, schedule=schedule)[1]
 
@@ -79,17 +81,18 @@ def _qrd_batch(engine, schedule, n_sms):
     return run_qrd_batch(As, device=dev, schedule=schedule)[2]
 
 
-def _mixed_fft_qrd(engine, schedule, n_sms, interleave=True,
+def _mixed_fft_qrd(engine, schedule, n_sms, packing="grid", interleave=True,
                    priorities=None):
     dev = dataclasses.replace(mixed_device(32, n_sms=n_sms), engine=engine,
                               backend="cpu")
     xs = (np.ones((3, 32)) + 0.25j * np.arange(32)).astype(np.complex64)
     As = np.stack([np.eye(16, dtype=np.float32) + 0.05])
     return launch_fft_qrd(xs, As, device=dev, schedule=schedule,
-                          interleave=interleave, priorities=priorities)[3]
+                          interleave=interleave, priorities=priorities,
+                          packing=packing)[3]
 
 
-def _mixed_overrides(engine, schedule, n_sms):
+def _mixed_overrides(engine, schedule, n_sms, packing="grid"):
     words = assemble(auto_nop(jc._OVR_PROG, 32)).words
     other = assemble("TDX R1\nLOD R2, (R1)+0\nADD.INT32 R2, R2, R1\n"
                      "NOP\nNOP\nSTO R2, (R1)+0\nSTOP").words
@@ -100,10 +103,10 @@ def _mixed_overrides(engine, schedule, n_sms):
                        backend="cpu",
                        sm=SMConfig(shmem_depth=64, max_steps=5_000))
     return launch(dev, programs=kerns, grid_map=[0, 1, 1, 0, 1],
-                  schedule=schedule)
+                  schedule=schedule, packing=packing)
 
 
-def _predicated_mix(engine, schedule, n_sms):
+def _predicated_mix(engine, schedule, n_sms, packing="grid"):
     a = assemble(auto_nop(jc._PRED_A, 16)).words
     b = assemble(auto_nop(jc._PRED_B, 16)).words
     kerns = [Kernel(a, block=16, name="pred"),
@@ -112,7 +115,7 @@ def _predicated_mix(engine, schedule, n_sms):
                        backend="cpu",
                        sm=SMConfig(shmem_depth=64, max_steps=5_000))
     return launch(dev, programs=kerns, grid_map=[0, 1, 0, 1],
-                  schedule=schedule)
+                  schedule=schedule, packing=packing)
 
 
 def _cholesky_batch(engine, schedule, n_sms):
@@ -129,9 +132,10 @@ def _cholesky_batch(engine, schedule, n_sms):
                               schedule=schedule, solve=False)[2]
 
 
-def _masked_reduction(engine, schedule, n_sms):
+def _masked_reduction(engine, schedule, n_sms, packing="grid"):
     dev = DeviceConfig(n_sms=n_sms, global_mem_depth=512, engine=engine,
-                       backend="cpu", sm=SMConfig(max_steps=50_000))
+                       backend="cpu", packing=packing,
+                       sm=SMConfig(max_steps=50_000))
     return launch_masked_reduction(
         np.linspace(-2.0, 2.0, 120, dtype=np.float32), 0.25,
         clip=(-1.0, 1.0), device=dev, block=64, schedule=schedule)[2]
@@ -143,8 +147,8 @@ PORT_CASES = {
     "fft32_batch3": _fft_batch,
     "qrd16_batch2": _qrd_batch,
     "mixed_fft_qrd": _mixed_fft_qrd,
-    "mixed_backloaded_prio": lambda e, s, n: _mixed_fft_qrd(
-        e, s, n, interleave=False, priorities=(0, 1)),
+    "mixed_backloaded_prio": lambda e, s, n, p="grid": _mixed_fft_qrd(
+        e, s, n, p, interleave=False, priorities=(0, 1)),
     "mixed_overrides": _mixed_overrides,
     "predicated_mix": _predicated_mix,
     "cholesky16_batch2": _cholesky_batch,
@@ -165,10 +169,18 @@ FP_WORDS = {
 
 
 def _cells():
+    # the heterogeneous cases on all three engines (the step engine runs
+    # them program-major, the other two in merged waves), and on the two
+    # merged engines under "length" packing too
     for name, case in jc.CASES.items():
-        engines = ("step",) if case.heterogeneous else ("step", "trace")
+        engines = ("step", "trace", "megakernel") if case.heterogeneous \
+            else ("step", "trace")
         for engine in engines:
-            yield name, engine
+            yield pytest.param(name, engine, "grid", id=f"{name}-{engine}")
+        if case.heterogeneous:
+            for engine in ("trace", "megakernel"):
+                yield pytest.param(name, engine, "length",
+                                   id=f"{name}-{engine}-length")
 
 
 def _assert_counters_equal(j, t):
@@ -198,12 +210,15 @@ def _assert_state_equal(j, t, fp_words=None):
             rtol=0, atol=FP_ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("name,engine", list(_cells()))
-def test_engine_matches_reference(name, engine):
+@pytest.mark.parametrize("name,engine,packing", list(_cells()))
+def test_engine_matches_reference(name, engine, packing):
     schedule = "dynamic" if jc.CASES[name].heterogeneous else "static"
-    j = jc.CASES[name].build(engine, schedule, "inline", 2, "grid")
-    t = PORT_CASES[name](engine, schedule, 2)
+    j = jc.CASES[name].build(engine, schedule, "inline", 2, packing)
+    t = PORT_CASES[name](engine, schedule, 2, *(
+        (packing,) if jc.CASES[name].heterogeneous else ()))
     assert t.engine == engine
+    assert (t.trace_merge is not None) == (engine != "step"
+                                           and jc.CASES[name].heterogeneous)
     _assert_counters_equal(j, t)
     _assert_state_equal(j, t, FP_WORDS.get(name))
 

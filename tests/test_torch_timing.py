@@ -123,8 +123,10 @@ def _record(res):
 
 # the golden shapes, built as the golden suite builds them. SAXPY runs both
 # on the megakernel and through "auto", which resolves so short a program
-# to the step engine; the multi-program grids and Cholesky ask for the step
-# engine (timing comes from the static traces on every engine)
+# to the step engine; the fused reduction and the mixed grids without a
+# named engine go through "auto" as well, which runs them on the
+# megakernel in merged waves; Cholesky and the masked reduction ask for
+# the step engine (timing comes from the static traces on every engine)
 def _saxpy(n_sms, engine="megakernel"):
     x = np.arange(256, dtype=np.float32)
     dev = DeviceConfig(n_sms=n_sms, global_mem_depth=1024, backend="cpu",
@@ -148,7 +150,7 @@ def _qrd(n_sms):
 
 def _reduction_fused(n_sms):
     dev = DeviceConfig(n_sms=n_sms, global_mem_depth=2048, backend="cpu",
-                       engine="step", sm=SMConfig(max_steps=50_000))
+                       sm=SMConfig(max_steps=50_000))
     return launch_reduction(np.ones(1024, np.float32), device=dev,
                             block=256, fused=True)[1]
 
@@ -174,13 +176,15 @@ def _masked_reduction(n_sms):
                                    block=256)[2]
 
 
-def _mixed_packed(n_sms, schedule):
+def _mixed(schedule, priorities=None, interleave=True, engine=None,
+           n_sms=4, packing=None):
     xs = np.ones((6, 64), np.complex64)
     As = np.stack([np.eye(16, dtype=np.float32)] * 3)
     return launch_fft_qrd(xs, As, device=mixed_device(64, n_sms=n_sms,
                                                       backend="cpu"),
-                          schedule=schedule, interleave=False, engine="step",
-                          packing="length")[3]
+                          schedule=schedule, priorities=priorities,
+                          interleave=interleave, engine=engine,
+                          packing=packing)[3]
 
 
 # test id -> (golden entry, launch, the engine it must have run on)
@@ -194,14 +198,34 @@ for _n in (1, 2, 4):
         f"qrd16_batch5[{_n}sm]", lambda n=_n: _qrd(n), "megakernel")
     CASES[f"saxpy256_b64[{_n}sm,auto]"] = (
         f"saxpy256_b64[{_n}sm]", lambda n=_n: _saxpy(n, "auto"), "step")
-    for _name, _fn in (("reduction1024_fused", _reduction_fused),
-                       ("cholesky16_solve_batch5", _cholesky),
+    CASES[f"reduction1024_fused[{_n}sm]"] = (
+        f"reduction1024_fused[{_n}sm]", lambda n=_n: _reduction_fused(n),
+        "megakernel")
+    for _name, _fn in (("cholesky16_solve_batch5", _cholesky),
                        ("masked_reduction1024", _masked_reduction)):
         CASES[f"{_name}[{_n}sm]"] = (
             f"{_name}[{_n}sm]", lambda n=_n, f=_fn: f(n), "step")
     for _s in ("dynamic", "static"):
-        _key = f"mixed_fft_qrd[{_n}sm,{_s},packed,step-engine]"
-        CASES[_key] = (_key, lambda n=_n, s=_s: _mixed_packed(n, s), "step")
+        for _e in ("step", "trace", "megakernel"):
+            _key = f"mixed_fft_qrd[{_n}sm,{_s},packed,{_e}-engine]"
+            CASES[_key] = (_key, lambda n=_n, s=_s, e=_e: _mixed(
+                s, interleave=False, engine=e, n_sms=n, packing="length"), _e)
+for _s in ("dynamic", "static"):
+    CASES[f"mixed_fft_qrd[4sm,{_s}]"] = (
+        f"mixed_fft_qrd[4sm,{_s}]", lambda s=_s: _mixed(s), "megakernel")
+    for _e in ("trace", "megakernel"):
+        _key = f"mixed_fft_qrd[4sm,{_s},{_e}-engine]"
+        CASES[_key] = (_key, lambda s=_s, e=_e: _mixed(s, engine=e), _e)
+CASES["mixed_fft_qrd[4sm,dynamic,fifo-backloaded]"] = (
+    "mixed_fft_qrd[4sm,dynamic,fifo-backloaded]",
+    lambda: _mixed("dynamic", interleave=False), "megakernel")
+CASES["mixed_fft_qrd[4sm,dynamic,qrd-first]"] = (
+    "mixed_fft_qrd[4sm,dynamic,qrd-first]",
+    lambda: _mixed("dynamic", priorities=(0, 1), interleave=False),
+    "megakernel")
+# every golden entry but the fleet's four
+_MISSING = set(GOLDEN) - {g for g, _, _ in CASES.values()}
+assert len(_MISSING) == 4 and all(g.startswith("fleet_") for g in _MISSING)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -39,11 +39,16 @@ name and power limit.
 - ``paths``: not one kernel but the host's cost around them: a launch of
   QRD-16 x 16, of FFT-64 x 64 and of SAXPY-4096 (grid 8 x 512, its 8
   GLD/GST rows a wave) on four SMs through the megakernel, step and trace
-  engines, timed on the host's clock to the end of
-  ``torch.cuda.synchronize()`` six times (``first_ms`` the first, with
-  its host lowering; ``median_ms`` the median of the other five), then
-  held to the same launch on the host (``chip_smoke.same_launch``). A
-  fresh process per turn keeps what else ran before out of the times.
+  engines, and of two heterogeneous grids: FFT-64 x 64 interleaved with
+  QRD-16 x 16 (``launch_fft_qrd``) and the fused reduction of 1024
+  elements, which the megakernel and trace engines run in merged waves
+  and the step engine program-major (a checkout without merged waves
+  raises on those two engines; its turn records ``raises``), each timed
+  on the host's clock to the end of ``torch.cuda.synchronize()`` six
+  times (``first_ms`` the first, with its host lowering; ``median_ms``
+  the median of the other five), then held to the same launch on the
+  host (``chip_smoke.same_launch``). A fresh process per turn keeps what
+  else ran before out of the times.
 
     python3 tools/turns.py segment --rows ROOT
 
@@ -207,7 +212,8 @@ def paths(cs, root: Path) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import DeviceConfig, SMConfig
-    from repro_torch.core.programs import (launch_saxpy, run_fft_batch,
+    from repro_torch.core.programs import (launch_fft_qrd, launch_reduction,
+                                           launch_saxpy, run_fft_batch,
                                            run_qrd_batch)
 
     rng = np.random.default_rng(20260611)
@@ -215,6 +221,7 @@ def paths(cs, root: Path) -> dict:
     xs = (rng.standard_normal((64, 64))
           + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
     x, y = rng.standard_normal((2, 4096)).astype(np.float32)
+    xr = rng.standard_normal(1024).astype(np.float32)
     work = {"qrd16": (lambda d: run_qrd_batch(As, device=d)[2],
                       dict(sm=SMConfig(imem_depth=1024, max_steps=200_000))),
             "fft64": (lambda d: run_fft_batch(xs, device=d)[1],
@@ -222,18 +229,31 @@ def paths(cs, root: Path) -> dict:
             "saxpy4096": (lambda d: launch_saxpy(2.5, x, y, device=d,
                                                  block=512)[1],
                           dict(global_mem_depth=3 * 4096 + 16,
-                               sm=SMConfig(max_steps=10_000)))}
+                               sm=SMConfig(max_steps=10_000))),
+            # mixed_device(64)'s SMConfig
+            "fft64_qrd16": (lambda d: launch_fft_qrd(xs, As, device=d)[3],
+                            dict(sm=SMConfig(shmem_depth=1024,
+                                             imem_depth=1024,
+                                             max_steps=200_000))),
+            "reduction1024_fused": (
+                lambda d: launch_reduction(xr, block=256, fused=True,
+                                           device=d)[1],
+                dict(global_mem_depth=2048, sm=SMConfig(max_steps=50_000)))}
     out = {}
     for name, (run, kw) in work.items():
         for engine in ("megakernel", "step", "trace"):
             dev = DeviceConfig(n_sms=4, engine=engine, **kw)
             walls = []
-            for _ in range(6):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = run(dev)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
+            try:
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = run(dev)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            except NotImplementedError as e:
+                out[f"{name}_{engine}"] = dict(raises=str(e))
+                continue
             cs.same_launch(f"{name} {engine}", res, run(DeviceConfig(
                 n_sms=4, engine=engine, backend="cpu", **kw)))
             out[f"{name}_{engine}"] = dict(
