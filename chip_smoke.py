@@ -25,7 +25,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      QRD at n = 5...32 over 64 and 37 matrices with non-finite input),
      and the flash kernel within 2e-5 in float32 and one bf16 ulp in
      bfloat16 at D = 1...128 with blocks of 16...256;
-  3. drives three paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
+  3. drives the paths on ``DeviceConfig(n_sms=4)`` at the paper's full SM
      width, through the program entry points, each with the launch counts
      set to 0 just before it and read just after:
        * main-path, the megakernel engine: FFT-64 over 64 blocks, QRD-16
@@ -41,6 +41,18 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
          ``launch_fft_qrd``) through "auto" (the megakernel), on the trace
          engine and under length packing, and the fused two-stage
          reduction of 1024 elements through "auto";
+       * fleet-path, the device fleet (``launch_fleet``, devices of four
+         SMs): that FFT-64 + QRD-16 grid on 2 and 4 devices under both
+         routes and on 2 devices on the trace engine, each equal to its
+         plain launch, SAXPY-4096 on 2 devices at remote latency 0 and 7,
+         and the fleet benchmark's shapes, whose cycles must be
+         BENCH_fleet.json's; each run's placement is printed;
+       * serve-path, the LaunchServer: the serve benchmark's 24-request
+         FFT-64:QRD-16 trace one request a launch and batched (through
+         "auto", and batched on the trace engine), whose percentiles and
+         makespan must be BENCH_serve.json's, the batched trace once more
+         through the background batcher (equal to the synchronous run),
+         and a SAXPY-4096 request with its own buffers, served solo;
        * kernel-path, the kernel layer's entry points (``kernels.ops``):
          the QRD solver of examples/qrd_solver.py over 4096 16x16 systems,
          QRD-32 x 1024 and QRD-8 x 4096; the spectral pipeline of
@@ -49,19 +61,21 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
          (32, 1024, 128) causal and (4, 128, 64) non-causal; each held
          against its plain version on the same inputs, and QRD and FFT
          cross-checked against the simulated eGPU on the card.
-     Each launch of the first three paths is repeated with the host's
-     plain versions and must give equal state, counters and profile; the
+     Each launch of these paths but the kernel layer's is repeated with
+     the host's plain versions and must give equal state, counters and
+     profile (a fleet's ``placement_reason``, which names the devices,
+     aside); the
      numerics are checked against numpy; every kernel of a path must
      have launched in it, and ``alu``, ``gather``, ``scatter``,
      ``gather_shared`` and ``scatter_shared`` exactly once per ALU, LOD,
      STO, GLD and GST row the host executed (the megakernel's SAXPY, and
-     the step, trace and merged paths). One ALU, LOD, STO, GLD and GST row of the
+     the step, trace, merged, fleet and serve paths). One ALU, LOD, STO, GLD and GST row of the
      step and trace engines, and one GLD and GST row of the megakernel,
      must issue one launch, one CUDA kernel and no PyTorch operation (a
      TorchDispatchMode count and the profiler's count of CUDA kernels),
      beside the per-op composition of the same rows that the row seam
      replaced;
-  4. reproduces the [4sm] golden entries the port reaches from
+  4. reproduces the [4sm] golden entries and the fleet's four from
      tests/golden_cycles.json (the mixed FFT + QRD entries on the engine
      each names, "auto" where it names none);
   5. times each kernel at its path's shapes with CUDA events beside its
@@ -169,6 +183,9 @@ PATH_KERNELS = {
     "trace-path": ("alu", "gather", "scatter"),
     "merged-path": ("segment", "gather_shared", "scatter_shared", "alu",
                     "gather", "scatter"),
+    "fleet-path": ("segment", "gather_shared", "scatter_shared", "alu",
+                   "gather", "scatter"),
+    "serve-path": ("segment",),
     "kernel-path": ("dot", "fft", "qrd", "flash"),
 }
 # the flash kernel against its plain version (float32: another summation
@@ -732,6 +749,17 @@ def check_kernel_layer(rng, dev) -> tuple[dict[str, float], float, float]:
 # phase 3: the paths
 # ---------------------------------------------------------------------------
 
+def same_state(name: str, got, want) -> None:
+    """Two launches' architectural state is equal, word for word."""
+    from repro_torch.convert import launch_result_to_numpy
+
+    g, w = launch_result_to_numpy(got), launch_result_to_numpy(want)
+    for k in ("regs", "shmem", "gmem", "oob"):
+        if not np.array_equal(g[k], w[k]):
+            raise AssertionError(f"{name}: {k} differs "
+                                 f"({int((g[k] != w[k]).sum())} words)")
+
+
 def on_card(fn):
     """Run ``fn`` on the card with the launch counts set to 0 just before
     and read just after; returns (its result, the counts + wall ms)."""
@@ -758,14 +786,8 @@ def check_path(name: str, per: dict) -> dict[str, int]:
     return counts
 
 def same_launch(name: str, gpu, cpu) -> None:
-    from repro_torch.convert import launch_result_to_numpy
-
-    g, c = launch_result_to_numpy(gpu), launch_result_to_numpy(cpu)
-    for k in ("regs", "shmem", "gmem", "oob"):
-        if not np.array_equal(g[k], c[k]):
-            raise AssertionError(f"{name}: {k} differs between the card and "
-                                 f"the plain versions on the host "
-                                 f"({int((g[k] != c[k]).sum())} words)")
+    same_state(f"{name} (card against the plain versions on the host)",
+               gpu, cpu)
     for k in ("cycles", "steps", "halted", "engine", "engine_fallback"):
         if getattr(gpu, k) != getattr(cpu, k):
             raise AssertionError(f"{name}: {k} {getattr(gpu, k)} != "
@@ -773,8 +795,18 @@ def same_launch(name: str, gpu, cpu) -> None:
     for k in ("wave_cycles", "cycles_by_class"):
         if not np.array_equal(getattr(gpu, k), getattr(cpu, k)):
             raise AssertionError(f"{name}: {k} differs")
-    if gpu.profile() != cpu.profile():
+    if profile_without_reason(gpu) != profile_without_reason(cpu):
         raise AssertionError(f"{name}: profile() differs")
+
+
+def profile_without_reason(res) -> dict:
+    """``res.profile()`` without a fleet's ``placement_reason``, the one
+    field that names the devices the launch saw."""
+    p = res.profile()
+    if "fleet" in p:
+        p["fleet"] = {k: v for k, v in p["fleet"].items()
+                      if k != "placement_reason"}
+    return p
 
 
 def main_path(rng):
@@ -1214,24 +1246,17 @@ def merged_path(rng):
     host_rows = counted_host_backend()
 
     def both(name, fn, engine):
-        (out, res), got = on_card(lambda: fn(None))
-        host_rows.update(dict.fromkeys(host_rows, 0))
-        _, res_c = fn(COUNTED_HOST)
-        same_launch(name, res, res_c)
+        outs = {}
+
+        def run(backend):
+            outs[backend], res = fn(backend)
+            return res
+        res, _ = counted_pair(name, run, host_rows, per)
         assert res.engine == engine, (name, res.engine)
         assert res.trace_merge is not None, name
-        assert res.halted and not bool(res.oob.any()), name
-        for k, n_rows in host_rows.items():
-            if got[k] != n_rows:
-                raise AssertionError(f"{name}: {got[k]} {k} launches on the "
-                                     f"card for {n_rows} rows")
-        if engine == "megakernel" and not got["segment"]:
-            raise AssertionError(f"{name}: no segment launch")
-        per[name] = dict(launches=got, rows=dict(host_rows),
-                         cycles=res.cycles, waves=res.n_waves,
-                         trace_merge={k: v for k, v in res.trace_merge.items()
-                                      if k != "per_wave"})
-        return out, res
+        per[name].update(waves=res.n_waves, trace_merge={
+            k: v for k, v in res.trace_merge.items() if k != "per_wave"})
+        return outs[None], res
 
     xs = (rng.standard_normal((64, 64))
           + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
@@ -1262,6 +1287,400 @@ def merged_path(rng):
     np.testing.assert_allclose(total, xr.astype(np.float64).sum(), rtol=0,
                                atol=1e-4)
     return check_path("merged-path", per), per
+
+
+def fft_qrd_grid(xs, As, depth: int) -> dict:
+    """``launch_fft_qrd``'s grid as launch keywords: FFT-n x len(xs)
+    interleaved with QRD-16 x len(As), each block's shared-memory image of
+    ``depth`` words."""
+    from repro_torch.core.programs import (fft_kernel, fft_shmem, qrd_kernel,
+                                           qrd_shmem)
+
+    gmap: list[int] = []
+    for i in range(max(len(xs), len(As))):
+        gmap += [0] * (i < len(xs)) + [1] * (i < len(As))
+    return dict(programs=[fft_kernel(xs.shape[1]), qrd_kernel()],
+                grid_map=gmap,
+                shmem=[np.stack([fft_shmem(x, depth) for x in xs]),
+                       np.stack([qrd_shmem(a, depth) for a in As])])
+
+
+def fft_qrd_outputs(res, n: int):
+    """The spectra and the Q and R factors in a launch of that grid, as
+    ``launch_fft_qrd`` unpacks them."""
+    from repro_torch.core.programs.fft import bitrev_indices
+    from repro_torch.core.programs.qrd import Q_BASE, R_BASE
+
+    gmap = np.asarray(res.grid_map)
+    mem = res.shmem_f32().cpu().numpy()
+    f, q = mem[gmap == 0], mem[gmap == 1]
+    X = np.empty((f.shape[0], n), np.complex64)
+    X[:, bitrev_indices(n)] = f[:, 0:2 * n:2] + 1j * f[:, 1:2 * n:2]
+    Q = q[:, Q_BASE:Q_BASE + 256].reshape(-1, 16, 16).transpose(0, 2, 1)
+    R = q[:, R_BASE:R_BASE + 256].reshape(-1, 16, 16)
+    return X, Q, R
+
+
+def counted_pair(name: str, run, host_rows: dict, per: dict):
+    """``run(backend)`` on the card (``None``: the default ``"cuda"``) and
+    on ``COUNTED_HOST``: equal state, counters and profile; the card's
+    ``alu``, ``gather``, ``scatter``, ``gather_shared`` and
+    ``scatter_shared`` launches once per ALU, LOD, STO, GLD and GST row of
+    the host run, and ``segment`` where the megakernel ran. Records the
+    run in ``per[name]``; returns both results."""
+    res, got = on_card(lambda: run(None))
+    host_rows.update(dict.fromkeys(host_rows, 0))
+    res_c = run(COUNTED_HOST)
+    same_launch(name, res, res_c)
+    assert res.halted and not bool(res.oob.any()), name
+    for k, n_rows in host_rows.items():
+        if got[k] != n_rows:
+            raise AssertionError(f"{name}: {got[k]} {k} launches on the "
+                                 f"card for {n_rows} rows")
+    if res.engine == "megakernel" and not got["segment"]:
+        raise AssertionError(f"{name}: no segment launch")
+    per[name] = dict(launches=got, rows=dict(host_rows), cycles=res.cycles,
+                     engine=res.engine)
+    return res, res_c
+
+
+def fleet_path(rng):
+    """The device fleet (``launch_fleet``) at the paper's full sector width,
+    4 SMs a device: FFT-64 x 64 interleaved with QRD-16 x 16 on 2 and 4
+    devices under both routes (the megakernel's sub-launches) and on 2
+    devices on the trace engine, SAXPY-4096 on 2 devices at remote latency
+    0 and 7 (the step engine's), and the
+    fleet benchmark's two shapes, whose cycles must be
+    ``BENCH_fleet.json``'s. Each runs on the card and on the host
+    (``counted_pair``), the profile's fleet view and ``host_dispatch``
+    included; each grid's state must equal its plain ``launch`` on the
+    card on the same engine. Prints each run's placement and its
+    reason."""
+    import dataclasses
+
+    from repro_torch.core import (DeviceConfig, FleetConfig, SMConfig,
+                                  launch, launch_fleet)
+    from repro_torch.core.programs import mixed_device
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+
+    per = {}
+    host_rows = counted_host_backend()
+
+    def fleet(name, fcfg_of, **kw):
+        res, _ = counted_pair(name, lambda b: launch_fleet(fcfg_of(b), **kw),
+                              host_rows, per)
+        f = res.profile()["fleet"]
+        print(f"fleet-path {name}: placement {f['placement']} "
+              f"({f['placement_reason']}), blocks per device "
+              f"{[d['blocks'] for d in f['per_device']]}", flush=True)
+        per[name].update(placement=f["placement"],
+                         placement_reason=f["placement_reason"],
+                         remote_gmem_cycles=f["remote_gmem_cycles"])
+        return res
+
+    def dev(backend, **kw):
+        return DeviceConfig(**kw, **({"backend": backend} if backend else {}))
+
+    # FFT-64 x 64 interleaved with QRD-16 x 16, devices of 4 SMs
+    xs = (rng.standard_normal((64, 64))
+          + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
+    As = rng.standard_normal((16, 16, 16)).astype(np.float32)
+    grid = fft_qrd_grid(xs, As, 1024)
+    plain = {}      # the plain launch of the grid on each engine
+    ref = np.fft.fft(xs, axis=1)
+    for n_dev, route, engine in ((2, "block", "auto"), (2, "kernel", "auto"),
+                                 (4, "block", "auto"), (4, "kernel", "auto"),
+                                 (2, "block", "trace")):
+        name = f"fft64_qrd16_{n_dev}dev_{route}" \
+            + ("_trace" if engine == "trace" else "")
+        res = fleet(name, lambda b, n=n_dev, r=route, e=engine: FleetConfig(
+            n_devices=n, route=r, device=dataclasses.replace(
+                mixed_device(64, n_sms=4, backend=b), engine=e)), **grid)
+        if engine not in plain:
+            plain[engine] = launch(dataclasses.replace(
+                mixed_device(64, n_sms=4), engine=engine), **grid)
+        same_state(f"{name} (fleet against its plain launch)", res,
+                   plain[engine])
+        X, Q, R = fft_qrd_outputs(res, 64)
+        np.testing.assert_allclose(X, ref, rtol=0,
+                                   atol=2e-5 * np.abs(ref).max())
+        check_qr(Q.astype(np.float64), R.astype(np.float64),
+                 As.astype(np.float64))
+
+    # SAXPY-4096 on 2 devices, at remote latency 0 and 7
+    n = 4096
+    x, y = rng.standard_normal((2, n)).astype(np.float32)
+    saxpy = dict(program=saxpy_grid_program(n, 512), grid=(8,), block=512,
+                 buffers={"x": x, "y": y, "z": np.zeros(n, np.float32),
+                          "alpha": np.asarray([2.5], np.float32)})
+    skw = dict(n_sms=4, global_mem_depth=3 * n + 16,
+               sm=SMConfig(max_steps=10_000))
+    plain_saxpy = launch(dev(None, **skw), **saxpy)
+    cycles = {}
+    for lat in (0, 7):
+        name = f"saxpy4096_2dev_numa{lat}"
+        res = fleet(name, lambda b, lat=lat: FleetConfig(
+            n_devices=2, remote_gmem_latency=lat, device=dev(b, **skw)),
+            **saxpy)
+        same_state(f"{name} (fleet against its plain launch)", res,
+                   plain_saxpy)
+        np.testing.assert_allclose(res.buffer("z").cpu().numpy(),
+                                   2.5 * x + y, rtol=1e-6)
+        cycles[lat] = res.cycles
+    assert cycles[7] > cycles[0], cycles
+
+    # the fleet benchmark: FFT-64 x 8 + QRD-16 x 4 on 1-SM devices, and
+    # SAXPY-512 on 2 devices of 2 SMs at latency 0 and 7
+    want = json.loads((ROOT / "BENCH_fleet.json").read_text())["lines"]
+    brng = np.random.default_rng(42)
+    bxs = (brng.standard_normal((8, 64))
+           + 1j * brng.standard_normal((8, 64))).astype(np.complex64)
+    bAs = np.stack([np.eye(16, dtype=np.float32) + 0.05 * brng.standard_normal(
+        (16, 16)).astype(np.float32) for _ in range(4)])
+    bgrid = fft_qrd_grid(bxs, bAs, 1024)
+    got = {}
+    for n_dev in (1, 2, 4):
+        name = f"bench_fft8_qrd4_{n_dev}dev"
+        res = fleet(name, lambda b, n=n_dev: FleetConfig(
+            n_devices=n, device=mixed_device(64, n_sms=1, backend=b)),
+            **bgrid)
+        got[f"fleet{n_dev}_mixed_fft8_qrd4"] = res.cycles
+    srng = np.random.default_rng(7)
+    sx, sy = (srng.standard_normal(512).astype(np.float32) for _ in range(2))
+    sb = dict(program=saxpy_grid_program(512, 64), grid=(8,), block=64,
+              buffers={"x": sx, "y": sy, "z": np.zeros(512, np.float32),
+                       "alpha": np.asarray([1.5], np.float32)})
+    numa = {}
+    for lat in (0, 7):
+        numa[lat] = fleet(f"bench_saxpy512_numa{lat}",
+                          lambda b, lat=lat: FleetConfig(
+                              n_devices=2, remote_gmem_latency=lat,
+                              device=dev(b, n_sms=2,
+                                         global_mem_depth=3 * 512 + 16,
+                                         sm=SMConfig(max_steps=10_000))),
+                          **sb)
+    got["numa_saxpy512"] = {
+        "remote_gmem_latency": 7,
+        "remote_gmem_cycles": numa[7].fleet["remote_gmem_cycles"],
+        "cycles_flat": numa[0].cycles, "cycles_numa": numa[7].cycles}
+    for k, v in got.items():
+        w = want[k]["cycles"] if k.startswith("fleet") else want[k]
+        if v != w:
+            raise AssertionError(f"fleet bench {k}: {v} != recorded {w}")
+    return check_path("fleet-path", per), per
+
+
+# the serve benchmark's device: 4 SMs, host dispatch 200 cycles + 8 a
+# queued launch
+SERVE_DEVICE = dict(n_sms=4, global_mem_depth=1024, dispatch_latency=200,
+                    queue_latency=8)
+
+
+def serve_trace(n_req: int, seed: int = 0) -> list:
+    """The serve benchmark's open-loop trace: (kind, input, arrival,
+    priority) per request, FFT-64:QRD-16 2:1, exponential gaps of mean
+    600 cycles, about 1 in 6 at priority 2."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(scale=600.0, size=n_req)).astype(
+        np.int64)
+    trace = []
+    for i in range(n_req):
+        prio = 2 if rng.random() < 1 / 6 else 0
+        if i % 3 == 2:
+            trace.append(("qrd", rng.standard_normal((16, 16)).astype(
+                np.float32), int(arrivals[i]), prio))
+        else:
+            trace.append(("fft", (rng.standard_normal(64)
+                                  + 1j * rng.standard_normal(64)).astype(
+                np.complex64), int(arrivals[i]), prio))
+    return trace
+
+
+def serve_run(trace, max_batch: int, backend=None, threaded=False,
+              engine=None) -> list:
+    """Serve ``trace`` on a ``LaunchServer`` over ``SERVE_DEVICE`` under
+    dynamic dispatch (``engine``: the launches' engine, default "auto");
+    returns the ``ServeResult`` of each request. With ``threaded`` the
+    requests are queued, the background batcher started and, once it
+    dispatched a batch, stopped with ``drain=True``."""
+    import dataclasses
+
+    from repro_torch.core import DeviceConfig, SMConfig
+    from repro_torch.core.programs import (fft_kernel, fft_shmem, qrd_kernel,
+                                           qrd_shmem)
+    from repro_torch.serve import LaunchRequest, LaunchServer
+
+    dcfg = DeviceConfig(**SERVE_DEVICE, sm=SMConfig(
+        shmem_depth=1024, imem_depth=1024, max_steps=200_000),
+        **({"backend": backend} if backend else {}))
+    server = LaunchServer(dcfg, max_queue=len(trace) + 1,
+                          max_batch=max_batch, schedule="dynamic",
+                          engine=engine)
+    kernels = {"fft": fft_kernel(64), "qrd": qrd_kernel()}
+    images = {"fft": fft_shmem, "qrd": qrd_shmem}
+    futs = []
+    for kind, data, arrival, prio in trace:
+        kern = kernels[kind] if not prio \
+            else dataclasses.replace(kernels[kind], priority=prio)
+        futs.append(server.submit(LaunchRequest(
+            kernel=kern, shmem=images[kind](data, 1024),
+            arrival_cycle=arrival, tag=kind)))
+    if threaded:
+        server.start()
+        deadline = time.perf_counter() + 120
+        while not server.stats()["batches"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the batcher dispatched nothing")
+            time.sleep(0.001)
+        server.stop(drain=True)
+    else:
+        server.drain()
+    return [f.result(timeout=120) for f in futs]
+
+
+def serve_line(results) -> dict:
+    """The serve benchmark's modeled numbers of one served trace."""
+    lat = np.asarray(sorted(r.latency_cycles for r in results))
+    return {"p50_latency_cycles": int(np.percentile(lat, 50)),
+            "p99_latency_cycles": int(np.percentile(lat, 99)),
+            "makespan_cycles": int(max(r.finish_cycle for r in results)),
+            "mean_batch_size": round(float(np.mean(
+                [r.batch_size for r in results])), 2),
+            "batch_occupancy": round(float(np.mean(
+                [r.batch_occupancy for r in results])), 3)}
+
+
+def same_results(name: str, got, want) -> None:
+    """Two servings of one trace agree for every request: state, cycles,
+    batch and profile."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for k in ("regs", "shmem", "oob"):
+            if not torch.equal(getattr(g, k).cpu(), getattr(w, k).cpu()):
+                raise AssertionError(f"{name}: request {i} {k} differs")
+        for k in ("arrival_cycle", "dispatch_cycle", "finish_cycle",
+                  "cycles", "wait_cycles", "latency_cycles", "batch_id",
+                  "batch_size", "batch_occupancy", "queue_depth",
+                  "finish_reason"):
+            if getattr(g, k) != getattr(w, k):
+                raise AssertionError(f"{name}: request {i} {k} "
+                                     f"{getattr(g, k)} != {getattr(w, k)}")
+        if g.profile != w.profile:
+            raise AssertionError(f"{name}: request {i} profile differs")
+
+
+def serve_path():
+    """The LaunchServer on the serve benchmark's 24-request trace, served
+    one request a launch (``max_batch=1``) and batched (``max_batch=8``)
+    through "auto" (the megakernel), and batched on the trace engine; and
+    a SAXPY-4096 request with its own buffers (solo, on the step engine)
+    between two FFT-64 requests. Each runs on the card and on the host
+    (``COUNTED_HOST``): equal state, cycles and profile for every request,
+    the card's row kernels launched once per host row and ``segment``
+    where the megakernel ran; each request's FFT, QR or SAXPY checked; the
+    trace's percentiles and makespan must be ``BENCH_serve.json``'s. The
+    batched trace runs once more through the background batcher
+    (``start``/``stop(drain=True)``) and must equal the synchronous
+    run."""
+    import torch
+    from repro_torch.core import DeviceConfig, Kernel, SMConfig
+    from repro_torch.core.programs import fft_kernel, fft_shmem
+    from repro_torch.core.programs.fft import bitrev_indices
+    from repro_torch.core.programs.qrd import Q_BASE, R_BASE
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+    from repro_torch.serve import LaunchRequest, LaunchServer
+
+    want = json.loads((ROOT / "BENCH_serve.json").read_text())["lines"]
+    trace = serve_trace(24)
+    host_rows = counted_host_backend()
+    per = {}
+
+    def served(name, run):
+        got, launched = on_card(lambda: run(None))
+        host_rows.update(dict.fromkeys(host_rows, 0))
+        same_results(name, got, run(COUNTED_HOST))
+        for k, n_rows in host_rows.items():
+            if launched[k] != n_rows:
+                raise AssertionError(f"serve {name}: {launched[k]} {k} "
+                                     f"launches for {n_rows} rows")
+        if any(r.profile["engine"] == "megakernel" for r in got) \
+                and not launched["segment"]:
+            raise AssertionError(f"serve {name}: no segment launch")
+        per[name] = dict(launches=launched, rows=dict(host_rows))
+        return got
+
+    def check_outputs(results):
+        for (kind, data, _, _), r in zip(trace, results):
+            mem = r.shmem_f32()[0].cpu().numpy()
+            if kind == "fft":
+                X = np.empty(64, np.complex64)
+                X[bitrev_indices(64)] = mem[0:128:2] + 1j * mem[1:128:2]
+                spec = np.fft.fft(data)
+                np.testing.assert_allclose(X, spec, rtol=0,
+                                           atol=2e-5 * np.abs(spec).max())
+            else:
+                check_qr(mem[Q_BASE:Q_BASE + 256].reshape(1, 16, 16)
+                         .transpose(0, 2, 1).astype(np.float64),
+                         mem[R_BASE:R_BASE + 256].reshape(1, 16, 16)
+                         .astype(np.float64), data[None].astype(np.float64))
+
+    for name, line, max_batch, engine in (
+            ("serial", "serial", 1, None), ("batched", "batched", 8, None),
+            ("batched_trace", "batched", 8, "trace")):
+        got = served(name, lambda b, m=max_batch, e=engine: serve_run(
+            trace, m, b, engine=e))
+        check_outputs(got)
+        numbers = serve_line(got)
+        for k, v in numbers.items():
+            if v != want[line][k]:
+                raise AssertionError(f"serve {name} {k}: {v} != recorded "
+                                     f"{want[line][k]}")
+        per[name].update(numbers)
+        print(f"serve-path {name}: {numbers}, wall "
+              f"{per[name]['launches']['wall_ms']:.1f} ms", flush=True)
+        if name == "batched":
+            threaded, launched = on_card(
+                lambda: serve_run(trace, max_batch, threaded=True))
+            same_results("batched, threaded", threaded, got)
+            per["batched_threaded"] = dict(launches=launched,
+                                           **serve_line(threaded))
+
+    # a request with its own buffers dispatches solo, between two others
+    n = 4096
+    rng = np.random.default_rng(20261019)
+    x, y = rng.standard_normal((2, n)).astype(np.float32)
+    xs = (rng.standard_normal((2, 64))
+          + 1j * rng.standard_normal((2, 64))).astype(np.complex64)
+
+    def solo(backend):
+        dcfg = DeviceConfig(n_sms=4, global_mem_depth=3 * n + 16,
+                            sm=SMConfig(shmem_depth=1024, max_steps=200_000),
+                            **({"backend": backend} if backend else {}))
+        server = LaunchServer(dcfg, max_batch=8)
+        reqs = [LaunchRequest(kernel=fft_kernel(64),
+                              shmem=fft_shmem(xs[0], 1024)),
+                LaunchRequest(kernel=Kernel(saxpy_grid_program(n, 512),
+                                            block=512), grid=8,
+                              buffers={"x": x, "y": y,
+                                       "z": np.zeros(n, np.float32),
+                                       "alpha": np.asarray([2.5],
+                                                           np.float32)}),
+                LaunchRequest(kernel=fft_kernel(64),
+                              shmem=fft_shmem(xs[1], 1024))]
+        futs = [server.submit(r) for r in reqs]
+        server.drain()
+        return [f.result() for f in futs]
+
+    got = served("solo_saxpy4096", solo)
+    if [r.batch_size for r in got] != [1, 1, 1] or got[1].gmem is None:
+        raise AssertionError("serve solo_saxpy4096: the buffers request "
+                             "did not dispatch solo")
+    off, _ = got[1].buffer_offsets["z"]
+    np.testing.assert_allclose(
+        got[1].gmem[off:off + n].view(torch.float32).cpu().numpy(),
+        2.5 * x + y, rtol=1e-6)
+    return check_path("serve-path", per), per
 
 
 def back_substitute(r, y):
@@ -1407,12 +1826,14 @@ def kernel_path(rng):
 
 
 def golden_shapes():
-    """The [4sm] golden entries the port reaches, run on the card."""
-    from repro_torch.core import DeviceConfig, SMConfig
+    """The [4sm] golden entries and the fleet's four, run on the card."""
+    from repro_torch.core import (DeviceConfig, FleetConfig, SMConfig,
+                                  launch_fleet)
     from repro_torch.core.programs import (
         cholesky_imem_depth, launch_fft_qrd, launch_masked_reduction,
         launch_reduction, launch_saxpy, mixed_device, run_cholesky_batch,
         run_fft_batch, run_qrd_batch)
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
 
     golden = json.loads((ROOT / "tests" / "golden_cycles.json").read_text())
     x = np.arange(256, dtype=np.float32)
@@ -1482,6 +1903,30 @@ def golden_shapes():
             lambda: mixed("dynamic", None, None, priorities=(0, 1)),
             "megakernel"),
     }
+    def fleet_mixed(route):
+        dev = mixed_device(64, n_sms=2)
+        return launch_fleet(
+            FleetConfig(n_devices=2, device=dev, route=route),
+            **fft_qrd_grid(np.ones((6, 64), np.complex64),
+                           np.stack([np.eye(16, dtype=np.float32)] * 3),
+                           dev.sm.shmem_depth))
+
+    def fleet_saxpy(lat):
+        return launch_fleet(
+            FleetConfig(n_devices=2, remote_gmem_latency=lat,
+                        device=DeviceConfig(n_sms=2, global_mem_depth=1024,
+                                            sm=SMConfig(max_steps=10_000))),
+            saxpy_grid_program(256, 64), grid=(4,), block=64,
+            buffers={"x": x, "y": np.ones_like(x), "z": np.zeros_like(x),
+                     "alpha": np.asarray([2.0], np.float32)})
+
+    runs["fleet_mixed_fft_qrd[2dev,2sm]"] = (
+        lambda: fleet_mixed("block"), "megakernel")
+    runs["fleet_mixed_fft_qrd[2dev,2sm,kernel-route]"] = (
+        lambda: fleet_mixed("kernel"), "megakernel")
+    for lat in (0, 7):
+        runs[f"fleet_saxpy256_b64[2dev,numa{lat}]"] = (
+            lambda lat=lat: fleet_saxpy(lat), "step")
     for sched in ("static", "dynamic"):
         runs[f"mixed_fft_qrd[4sm,{sched}]"] = (
             lambda s=sched: mixed(s, None, None, True), "megakernel")
@@ -1499,6 +1944,8 @@ def golden_shapes():
                "gmem": int(res.cycles_by_class[-1])}
         if res.n_waves:
             got["wave_cycles"] = [int(c) for c in res.wave_cycles]
+        if res.fleet is not None:
+            got["remote_gmem"] = int(res.fleet["remote_gmem_cycles"])
         want = golden[name.split(" ")[0]]
         if got != want:
             raise AssertionError(f"{name}: {got} != golden {want}")
@@ -2026,6 +2473,9 @@ def main() -> int:
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
     paths["merged-path"] = phases.run(
         "merged-path", lambda: merged_path(np.random.default_rng(20261017)))
+    paths["fleet-path"] = phases.run(
+        "fleet-path", lambda: fleet_path(np.random.default_rng(20261018)))
+    paths["serve-path"] = phases.run("serve-path", serve_path)
     per_row = phases.run("row-issue", lambda: {
         "main-path": row_issue("megakernel"),
         "step-path": row_issue("step"), "trace-path": row_issue("trace")})

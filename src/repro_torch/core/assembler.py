@@ -290,6 +290,51 @@ def assemble(text: str) -> Program:
     return Program(words=words, instrs=instrs, labels=labels, source=srcs)
 
 
+def disassemble(word: int) -> str:
+    """One encoded 40-bit word as assembly text (the predicate prefix, the
+    mnemonic with its type suffix, operands and active-shape modifiers)."""
+    ins = Instr.decode(int(word))
+    p = f"@{'!' if ins.pneg else ''}R{ins.preg} " if ins.pen else ""
+    return p + _disasm_body(ins)
+
+
+def _disasm_body(ins: Instr) -> str:
+    op = ins.op
+    t = f".{ins.typ.name}" if op in (Op.ADD, Op.SUB, Op.MUL, Op.DOT, Op.SUM,
+                                     Op.INVSQR, Op.LODI, Op.SETP) else ""
+    if op == Op.SETP:
+        return (f"SETP.{Cond(ins.imm).name}{t} "
+                f"R{ins.rd}, R{ins.ra}, R{ins.rb}")
+    mods = []
+    if ins.width != Width.FULL:
+        mods.append(f"w{(16, 8, 4, 1)[int(ins.width)]}")
+    if ins.depth != Depth.FULL:
+        mods.append({1: "dhalf", 2: "dquarter", 3: "d1"}[int(ins.depth)])
+    m = (" {" + ",".join(mods) + "}") if mods else ""
+
+    def reg(r: int, ext: int) -> str:
+        return f"R{r}@{ext}" if ins.x else f"R{r}"
+
+    if op in _THREE_OP:
+        return (f"{op.name}{t} R{ins.rd}, {reg(ins.ra, ins.ext_a)}, "
+                f"{reg(ins.rb, ins.ext_b)}{m}")
+    if op in _TWO_OP:
+        return f"{op.name}{t} R{ins.rd}, {reg(ins.ra, ins.ext_a)}{m}"
+    if op in (Op.LOD, Op.GLD):
+        return f"{op.name}{t} R{ins.rd}, (R{ins.ra})+{ins.imm}{m}"
+    if op in (Op.STO, Op.GST):
+        return f"{op.name} R{ins.rd}, (R{ins.ra})+{ins.imm}{m}"
+    if op == Op.LODI:
+        return f"LOD{t} R{ins.rd}, #{ins.imm}{m}"
+    if op in (Op.TDX, Op.TDY, Op.BID, Op.PID):
+        return f"{op.name} R{ins.rd}{m}"
+    if op in (Op.JMP, Op.JSR, Op.LOOP):
+        return f"{op.name} {ins.imm}"
+    if op == Op.INIT:
+        return f"INIT {ins.imm}"
+    return op.name
+
+
 # ---------------------------------------------------------------------------
 # Static hazard checker (paper §III: "Hazards have to be managed by the
 # programmer; there are no hardware interlocks.")

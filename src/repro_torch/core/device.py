@@ -90,12 +90,19 @@ class DeviceConfig:
                                       # "auto" (the reference's ladder)
     packing: str = "grid"             # wave packing: "grid" | "length" |
                                       # "auto" (see core.packing)
+    dispatch_latency: int = 0         # host cycles to dispatch one launch
+                                      # (0: free)
+    queue_latency: int = 0            # extra host cycles per launch queued
+                                      # at dispatch (``launch(queue_depth=)``;
+                                      # the LaunchServer sets it)
 
     def __post_init__(self):
         if self.n_sms < 1:
             raise ValueError(f"n_sms={self.n_sms} must be >= 1")
         if self.global_mem_depth < 1:
             raise ValueError("global_mem_depth must be >= 1")
+        if self.dispatch_latency < 0 or self.queue_latency < 0:
+            raise ValueError("dispatch_latency/queue_latency must be >= 0")
         if self.schedule not in SCHEDULES + ("auto",):
             raise ValueError(f"schedule={self.schedule!r} must be one of "
                              f"{SCHEDULES + ('auto',)}")
@@ -432,9 +439,16 @@ class LaunchResult:
     trace_merge: dict[str, Any] | None = None  # merged-wave records
     packing: str = "grid"               # resolved wave-packing policy
     wave_packing: WavePacking | None = None  # the membership decision
+    host_dispatch: dict[str, int] | None = None  # the launch-queue charge
+                                        # (non-None exactly when the
+                                        # device models one)
     priority_respected: bool = True     # False iff Kernel(priority=) was
                                         # requested but the static wave
                                         # schedule ignored it
+    fleet: dict[str, Any] | None = None  # the fleet view of a
+                                        # ``core.fleet.launch_fleet``:
+                                        # routing, placement, per-device
+                                        # occupancy, NUMA charge
 
     @property
     def n_blocks(self) -> int:
@@ -459,7 +473,9 @@ class LaunchResult:
         extended with the scheduler's per-SM / per-program occupancy view
         and the single global port's utilization. ``trace_merge`` appears
         when a compiled engine ran merged waves: the packing policy, each
-        wave's padding and, on the megakernel, its fusion counts."""
+        wave's padding and, on the megakernel, its fusion counts;
+        ``host_dispatch`` when the device charges a dispatch or queue
+        latency, and ``fleet`` on a fleet launch."""
         by = np.asarray(self.cycles_by_class)
         total = int(by.sum())
         out: dict[str, Any] = {
@@ -478,6 +494,10 @@ class LaunchResult:
         }
         if self.trace_merge is not None:
             out["trace_merge"] = self.trace_merge
+        if self.host_dispatch is not None:
+            out["host_dispatch"] = dict(self.host_dispatch)
+        if self.fleet is not None:
+            out["fleet"] = dict(self.fleet)
         t = self.timing
         if t is None:
             return out
@@ -666,6 +686,22 @@ def _resolve_engine(engine: str | None, dcfg: DeviceConfig,
     return mode, None
 
 
+def _host_dispatch(dcfg: DeviceConfig, queue_depth: int
+                   ) -> tuple[int, dict[str, int] | None]:
+    """The launch-queue model: the host cycles charged before a launch's
+    first block issues, and its ``profile()["host_dispatch"]`` record
+    (None when the device charges no latency)."""
+    if queue_depth < 0:
+        raise ValueError(f"queue_depth={queue_depth} must be >= 0")
+    latency = dcfg.dispatch_latency + dcfg.queue_latency * queue_depth
+    if not (dcfg.dispatch_latency or dcfg.queue_latency):
+        return latency, None
+    return latency, {"queue_depth": int(queue_depth),
+                     "dispatch_cycles": int(dcfg.dispatch_latency),
+                     "queue_cycles": int(dcfg.queue_latency * queue_depth),
+                     "latency_cycles": int(latency)}
+
+
 def launch(dcfg: DeviceConfig, program=None, grid=None,
            block: int | None = None, *,
            programs: Sequence[Any] | None = None,
@@ -675,7 +711,9 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
            backend: str | None = None, dim_x: int | None = None,
            schedule: str | None = None,
            engine: str | None = None,
-           packing: str | None = None) -> LaunchResult:
+           packing: str | None = None,
+           queue_depth: int = 0,
+           block_ids: Sequence[int] | None = None) -> LaunchResult:
     """CUDA-style kernel launch on the multi-SM device.
 
     Args:
@@ -705,13 +743,32 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         programs (``profile()["engine_fallback"]`` names the reason).
       packing: wave-packing policy ("grid" | "length" | "auto"), which
         shapes the timing model's waves.
+      queue_depth: launches the host had queued when it dispatched this
+        one (this one included). The launch is charged
+        ``dcfg.dispatch_latency + dcfg.queue_latency * queue_depth`` host
+        cycles before its first block issues, reported as
+        ``profile()["host_dispatch"]`` when either latency is non-zero.
+      block_ids: an ``(n_blocks,)`` override of each block's BID (default:
+        its index within its own program's grid). A fleet sub-launch
+        (``core.fleet``) runs a slice of the grid whose blocks keep their
+        fleet-level BIDs.
     """
     kernels, gmap, shmems = _normalize_grid(dcfg, program, grid, block,
                                             dim_x, programs, grid_map,
                                             shmem)
     n_blocks = int(gmap.shape[0])
+    bids = None
+    if block_ids is not None:
+        bids = np.asarray(list(block_ids), np.int64)
+        if bids.shape != (n_blocks,):
+            raise ValueError(f"block_ids has shape {bids.shape}, want "
+                             f"({n_blocks},)")
+        if (bids < 0).any():
+            raise ValueError("block_ids must be non-negative")
     device = backend_device(backend or dcfg.backend)
     mode = _resolve_schedule(schedule, dcfg, len(kernels))
+
+    host_latency, host_dispatch = _host_dispatch(dcfg, queue_depth)
 
     prioritized = any(k.priority for k in kernels)
     priority_respected = (mode == "dynamic") or not prioritized
@@ -746,13 +803,14 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
     block_traces = [traces[k] for k in gmap]
     timing = schedule_blocks(block_traces, dcfg.n_sms, mode,
                              phase_of=block_phase,
-                             priority_of=block_priority, packing=wp)
+                             priority_of=block_priority, packing=wp,
+                             start_cycle=host_latency)
     if mode == "static":
         static_span = timing.makespan
     else:
         static_span = schedule_blocks(block_traces, dcfg.n_sms, "static",
-                                      phase_of=block_phase,
-                                      packing=wp).makespan
+                                      phase_of=block_phase, packing=wp,
+                                      start_cycle=host_latency).makespan
 
     # ---- global-memory image --------------------------------------------
     # packed into a tensor of the launch's own (``pack_buffers`` and
@@ -785,6 +843,7 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         # wave's programs in index order, one merged plan per such set
         local_bid = np.zeros(n_blocks, np.int64)
         sh_batches: dict[int, Any] = {}
+        engine_bid = bids if bids is not None else local_bid
         for k in present:
             pos = np.flatnonzero(gmap == k)
             local_bid[pos] = np.arange(pos.size)
@@ -824,7 +883,7 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
                         img, (0, shmem_pad - img.shape[1])))
                 off += c
             regs_f, sh_f, gm, oob_f = run_merged(
-                be, plan, counts, local_bid[blocks], gmap[blocks],
+                be, plan, counts, engine_bid[blocks], gmap[blocks],
                 torch.zeros((n, MAX_THREADS, N_REGS), dtype=torch.int32,
                             device=device),
                 torch.cat(sh0), gm,
@@ -863,8 +922,11 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
                     cfg, n, gmem_depth=dcfg.global_mem_depth,
                     shmem=None if sh_batch is None else sh_batch[w0:w1],
                     gmem=gm, device=device)
-                # program-local BID, PID = k
-                bidx = torch.arange(w0, w1, dtype=torch.int32, device=device)
+                # program-local BID (or the caller's), PID = k
+                bidx = torch.arange(w0, w1, dtype=torch.int32,
+                                    device=device) if bids is None \
+                    else torch.as_tensor(bids[pos[w0:w1]], dtype=torch.int32,
+                                         device=device)
                 pidx = torch.full((n,), k, dtype=torch.int32, device=device)
                 if eng == "step":
                     fin = run_wave(cfg, be, *imems[k], bidx, pidx, st)
@@ -892,8 +954,9 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
 
     # ---- aggregate counters ---------------------------------------------
     if mode == "static" and len(kernels) == 1:
-        # the lockstep fast path: one program, shared sequencer per wave
-        cycles = int(sum(wave_cycles))
+        # the lockstep fast path: one program, shared sequencer per wave;
+        # the host-dispatch charge precedes the first wave
+        cycles = int(sum(wave_cycles)) + int(host_latency)
         steps = int(sum(wave_steps))
         by_class = machine_by
         waves_out = np.asarray(wave_cycles, np.int64)
@@ -931,5 +994,6 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
         trace_merge=merge_stats,
         packing=wp.policy,
         wave_packing=wp,
+        host_dispatch=host_dispatch,
         priority_respected=priority_respected,
     )

@@ -555,6 +555,24 @@ def register_backend(backend: ExecBackend) -> ExecBackend:
     return backend
 
 
+def register_execute_backend(name: str, device: str = "cuda"):
+    """Decorator: register backend ``name`` whose ALU rows run the decorated
+    per-op function ``fn(op, typ, a, b, mask, old)`` (``simt_alu``'s
+    signature: the new destination column) on operand columns gathered
+    from the register file. Its LOD, STO, GLD and GST rows are the
+    built-in row seam's, which launch their kernels on card tensors and
+    run their plain versions on host tensors; the state lives on
+    ``device``."""
+    def deco(fn):
+        register_backend(ExecBackend(
+            name=name, device=device,
+            alu_row=functools.partial(simt_alu.alu_row_plain, alu=fn),
+            lod_row=simt_step.simt_lod_row, sto_row=simt_step.simt_sto_row,
+            gld_row=simt_step.simt_gld_row, gst_row=simt_step.simt_gst_row))
+        return fn
+    return deco
+
+
 def get_execute_backend(name: str) -> ExecBackend:
     try:
         return _EXECUTE_BACKENDS[name]

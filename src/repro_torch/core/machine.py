@@ -88,15 +88,28 @@ class MachineState:
 
 
 def as_u32_image(arr, depth: int, what: str = "memory",
-                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """Coerce a host array to a (..., depth) memory image of 32-bit words,
-    stored as ``torch.int32`` on ``device``.
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """Coerce an array to a (..., depth) memory image of 32-bit words,
+    stored as ``torch.int32`` on ``device`` (default: a tensor's own
+    device, the host for anything else). The image never aliases ``arr``.
 
     float input is rounded to float32 and bitcast (the eGPU memory system
     is typeless 32-bit words); integer input keeps its low 32 bits;
-    shorter images are zero-padded on the last axis.
+    shorter images are zero-padded on the last axis. An int32 or float32
+    tensor is copied and padded on its own device, so an image on the
+    card never passes through the host.
     """
     if isinstance(arr, torch.Tensor):
+        if device is None:
+            device = arr.device
+        if arr.dtype in (torch.int32, torch.float32):
+            t = arr.detach().view(torch.int32)
+            pad = depth - t.shape[-1]
+            if pad < 0:
+                raise ValueError(f"{what} image of {t.shape[-1]} words "
+                                 f"exceeds depth {depth}")
+            t = torch.nn.functional.pad(t, (0, pad)) if pad else t.clone()
+            return t.contiguous().to(device)
         arr = arr.detach().cpu().numpy()
     a = np.asarray(arr)
     if a.dtype.kind == "f" and a.dtype.itemsize >= 4:
@@ -109,7 +122,8 @@ def as_u32_image(arr, depth: int, what: str = "memory",
                          f"depth {depth}")
     if pad:
         a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+        device or "cpu")
 
 
 def init_state(cfg: SMConfig, shmem=None,

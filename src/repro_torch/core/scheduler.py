@@ -229,6 +229,60 @@ def schedule_blocks(traces: Sequence[ProgramTrace], n_sms: int,
                     wave_cycles=np.asarray(waves, np.int64))
 
 
+def merge_schedules(parts: Sequence[tuple[Schedule, np.ndarray, int]],
+                    n_sms: int, n_blocks: int) -> Schedule:
+    """Union per-device schedules into one fleet-level :class:`Schedule`.
+
+    ``parts`` is a sequence of ``(schedule, blocks, sm_offset)`` triples:
+    ``schedule`` covers the fleet blocks listed in ``blocks`` (fleet
+    block index per local block, in the schedule's local order) and its
+    SM indices are shifted by ``sm_offset`` — device ``d`` of a fleet
+    owns SMs ``[d * per_device, (d+1) * per_device)``. A fleet block may
+    appear in exactly one part. The merged makespan is the latest retire
+    over all parts (devices run concurrently; per-phase serialization is
+    already baked into each part's ``start_cycle``), and ``wave_cycles``
+    concatenates in part order (device-major). All parts must share one
+    ``mode``.
+    """
+    if not parts:
+        raise ValueError("merge_schedules needs at least one part")
+    modes = {s.mode for s, _, _ in parts}
+    if len(modes) != 1:
+        raise ValueError(f"cannot merge schedules of mixed modes {modes}")
+    sm = np.zeros(n_blocks, np.int64)
+    start = np.zeros(n_blocks, np.int64)
+    finish = np.zeros(n_blocks, np.int64)
+    busy = np.zeros(n_blocks, np.int64)
+    wait = np.zeros(n_blocks, np.int64)
+    gmem = np.zeros(n_blocks, np.int64)
+    seen = np.zeros(n_blocks, bool)
+    waves: list[int] = []
+    makespan = 0
+    for s, blocks, sm_off in parts:
+        idx = np.asarray(blocks, np.int64)
+        if idx.shape != (s.n_blocks,):
+            raise ValueError(f"part covers {s.n_blocks} blocks but maps "
+                             f"{idx.shape[0]} fleet indices")
+        if seen[idx].any():
+            raise ValueError("parts overlap: a fleet block was scheduled "
+                             "on two devices")
+        seen[idx] = True
+        sm[idx] = s.block_sm + int(sm_off)
+        start[idx] = s.block_start
+        finish[idx] = s.block_finish
+        busy[idx] = s.block_busy
+        wait[idx] = s.block_wait
+        gmem[idx] = s.block_gmem
+        waves.extend(int(c) for c in s.wave_cycles)
+        makespan = max(makespan, s.makespan)
+    if not seen.all():
+        raise ValueError("parts leave fleet blocks unscheduled")
+    return Schedule(mode=modes.pop(), n_sms=n_sms, makespan=makespan,
+                    block_sm=sm, block_start=start, block_finish=finish,
+                    block_busy=busy, block_wait=wait, block_gmem=gmem,
+                    wave_cycles=np.asarray(waves, np.int64))
+
+
 def _shift(s: Schedule, start_cycle: int) -> Schedule:
     """Delay a whole schedule by ``start_cycle`` host-dispatch cycles:
     every block's issue/retire moves right, the makespan absorbs the

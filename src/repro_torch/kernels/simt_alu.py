@@ -58,17 +58,19 @@ def simt_alu(op: int, typ: int, a, b, mask, old):
 # one ALU data row of the step and trace engines
 # ---------------------------------------------------------------------------
 
-def alu_row_plain(cfg, row, regs):
+def alu_row_plain(cfg, row, regs, alu=alu_plain):
     """One ALU row (``row`` a ``core.executor.FusedRow``) over ``regs``
     (n, 512, 16) int32: ``ref.alu_ref`` of the row's operands where the
-    row's write mask holds, else the old destination. ``regs`` is not
-    modified; returns the new register file."""
+    row's write mask holds, else the old destination. ``alu`` is the
+    per-op function (``simt_alu``'s signature) that computes the new
+    destination column. ``regs`` is not modified; returns the new
+    register file."""
     # the core's executor imports this module: take its row view at call
     # time, so that either may be imported first
     from ..core.executor import row_eff, row_operand
 
     d = row.d
-    res = alu_plain(d["opcode"], d["typ"],
+    res = alu(d["opcode"], d["typ"],
                     row_operand(row, regs, d["ra"], d["ext_a"]),
                     row_operand(row, regs, d["rb"], d["ext_b"]),
                     row_eff(cfg.n_threads, row, regs),

@@ -780,3 +780,171 @@ def test_each_ops_call_launches_its_kernel_once(dev):
         assert build.launches[name] == before[name] + 1, name
         assert all(build.launches[k] == before[k]
                    for k in before if k != name), name
+
+
+# ---------------------------------------------------------------------------
+# the fleet, the LaunchServer and global-memory images on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_as_u32_image_of_a_card_tensor_makes_no_host_copy(dev, dtype):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.machine import as_u32_image
+
+    class HostOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and not out.is_cuda:
+                self.ops.append(str(func))
+            return out
+
+    src = torch.arange(100, device=dev).to(dtype)
+    with HostOps() as mode:
+        img = as_u32_image(src, 128)
+    assert not mode.ops, mode.ops
+    assert img.is_cuda and img.dtype == torch.int32 and img.shape == (128,)
+    assert img.data_ptr() != src.data_ptr()
+    assert torch.equal(img.cpu(), as_u32_image(src.cpu(), 128))
+
+
+def _fleet_grids():
+    """Fleet launches of two devices of four SMs for the card tests:
+    FFT-64 x 6 interleaved with QRD-16 x 3 on the megakernel and on the
+    trace engine, and SAXPY-4096 on the megakernel."""
+    from repro_torch.core import DeviceConfig, FleetConfig, launch_fleet
+    from repro_torch.core.programs import (fft_kernel, fft_shmem,
+                                           mixed_device, qrd_kernel,
+                                           qrd_shmem)
+    from repro_torch.core.programs.saxpy import saxpy_grid_program
+
+    rng = np.random.default_rng(31)
+    xs = (rng.standard_normal((6, 64))
+          + 1j * rng.standard_normal((6, 64))).astype(np.complex64)
+    As = rng.standard_normal((3, 16, 16)).astype(np.float32)
+    n = 4096
+    buffers = {"x": rng.standard_normal(n).astype(np.float32),
+               "y": rng.standard_normal(n).astype(np.float32),
+               "z": np.zeros(n, np.float32),
+               "alpha": np.asarray([2.5], np.float32)}
+
+    def mixed(engine):
+        def run(backend, route="block", placement="auto"):
+            dcfg = dataclasses.replace(
+                mixed_device(64, n_sms=4, backend=backend), engine=engine)
+            sh = [np.stack([fft_shmem(x, 1024) for x in xs]),
+                  np.stack([qrd_shmem(A, 1024) for A in As])]
+            return launch_fleet(
+                FleetConfig(n_devices=2, device=dcfg, route=route,
+                            placement=placement),
+                programs=[fft_kernel(64), qrd_kernel()],
+                grid_map=[0, 1, 0, 1, 0, 1, 0, 0, 0], shmem=sh)
+        return run
+
+    def saxpy(backend, route="block", placement="auto"):
+        dcfg = DeviceConfig(n_sms=4, global_mem_depth=3 * n + 16,
+                            backend=backend, engine="megakernel",
+                            sm=SMConfig(max_steps=10_000))
+        return launch_fleet(
+            FleetConfig(n_devices=2, device=dcfg, route=route,
+                        placement=placement),
+            saxpy_grid_program(n, 512), grid=(8,), block=512,
+            buffers=buffers)
+
+    return {"fft64_qrd16_megakernel": (mixed("megakernel"), ("segment",)),
+            "fft64_qrd16_trace": (mixed("trace"),
+                                  ("alu", "gather", "scatter")),
+            "saxpy4096": (saxpy, ("segment", "gather_shared",
+                                  "scatter_shared"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "kernel"])
+@pytest.mark.parametrize("name", ["fft64_qrd16_megakernel",
+                                  "fft64_qrd16_trace", "saxpy4096"])
+def test_fleet_sub_launches_run_the_kernels_on_the_card(dev, name, route):
+    from repro_torch.convert import launch_result_to_numpy
+
+    run, kernels = _fleet_grids()[name]
+    # one card: "auto" keeps the sub-launches on it, as the host run does
+    cards = torch.cuda.device_count()
+    placement = "auto" if cards < 2 else "host"
+    build.reset_launches()
+    got = run("cuda", route=route, placement=placement)
+    torch.cuda.synchronize()
+    launched = dict(build.launches)
+    want = run("cpu", route=route, placement=placement)
+    g, w = launch_result_to_numpy(got), launch_result_to_numpy(want)
+    for k in ("regs", "shmem", "gmem", "oob"):
+        assert np.array_equal(g[k], w[k]), k
+    assert got.gmem.is_cuda
+    pg, pw = got.profile(), want.profile()
+    reason = pg["fleet"].pop("placement_reason")
+    pw["fleet"].pop("placement_reason")
+    if name == "saxpy4096" and route == "block" and cards < 2:
+        assert reason == f"torch exposes {cards} CUDA device(s) < 2"
+    assert pg == pw
+    for k in kernels:
+        assert launched[k] > 0, (k, launched)
+
+
+@pytest.mark.cuda
+def test_threaded_server_round_trip_on_the_card(dev):
+    from repro_torch.core import DeviceConfig
+    from repro_torch.core.programs import fft_kernel, fft_shmem
+    from repro_torch.serve import LaunchRequest, LaunchServer
+
+    rng = np.random.default_rng(12)
+    xs = (rng.standard_normal((6, 16))
+          + 1j * rng.standard_normal((6, 16))).astype(np.complex64)
+
+    def server(backend):
+        return LaunchServer(DeviceConfig(
+            n_sms=2, global_mem_depth=128, backend=backend,
+            sm=SMConfig(shmem_depth=64, max_steps=200_000)), max_batch=4)
+
+    host = server("cpu")
+    want = [host.submit(LaunchRequest(kernel=fft_kernel(16),
+                                      shmem=fft_shmem(x, 64))) for x in xs]
+    host.drain()
+    card = server("cuda")
+    card.start()
+    try:
+        futs = [card.submit(LaunchRequest(kernel=fft_kernel(16),
+                                          shmem=fft_shmem(x, 64)))
+                for x in xs]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        card.stop()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        # read on another stream than the batcher's: the futures hold
+        # finished results
+        words = [r.shmem.clone() for r in got]
+    side.synchronize()
+    for w, r, f in zip(words, got, want):
+        assert r.shmem.is_cuda and r.finish_reason == "ok"
+        assert torch.equal(w.cpu(), f.result().shmem)
+        assert r.latency_cycles == r.wait_cycles + r.cycles
+    assert card.stats()["completed"] == 6 and card.queue_depth == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="one card per simulated eGPU needs at least two "
+                    f"CUDA devices; torch exposes {torch.cuda.device_count()}")
+def test_shard_map_placement_runs_a_device_per_card(dev):
+    run, _ = _fleet_grids()["saxpy4096"]
+    got = run("cuda", placement="shard_map")
+    want = run("cuda", placement="host")
+    fleet = got.profile()["fleet"]
+    assert fleet["placement"] == "shard_map" and got.engine == "trace"
+    for k in ("regs", "shmem", "gmem", "oob"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.gmem.device == want.gmem.device
+    assert run("cuda").profile()["fleet"]["placement"] == "shard_map"

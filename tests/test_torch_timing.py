@@ -1,6 +1,6 @@
 """The port's timing model against the JAX reference: static program traces,
-wave packing and the block schedulers, and the golden cycle entries the
-port's engines reach, reproduced by the port's own launches."""
+wave packing and the block schedulers, and all 48 golden cycle entries
+(the fleet's four included), reproduced by the port's own launches."""
 import json
 from pathlib import Path
 
@@ -14,15 +14,18 @@ from repro.core.programs import fft as j_fft
 from repro.core.programs import qrd as j_qrd
 from repro.core.programs import reduction as j_red
 from repro.core.programs import saxpy as j_saxpy
-from repro_torch.core import DeviceConfig, SMConfig
+from repro_torch.core import DeviceConfig, FleetConfig, SMConfig, launch_fleet
 from repro_torch.core import cycles as t_cycles
 from repro_torch.core import packing as t_packing
 from repro_torch.core import scheduler as t_sched
-from repro_torch.core.programs import (cholesky_imem_depth, launch_fft_qrd,
+from repro_torch.core.programs import (cholesky_imem_depth, fft_kernel,
+                                       fft_shmem, launch_fft_qrd,
                                        launch_masked_reduction,
                                        launch_reduction, launch_saxpy,
-                                       mixed_device, run_cholesky_batch,
-                                       run_fft_batch, run_qrd_batch)
+                                       mixed_device, qrd_kernel, qrd_shmem,
+                                       run_cholesky_batch, run_fft_batch,
+                                       run_qrd_batch)
+from repro_torch.core.programs.saxpy import saxpy_grid_program
 
 GOLDEN = json.loads((Path(__file__).parent / "golden_cycles.json").read_text())
 
@@ -118,6 +121,8 @@ def _record(res):
            "gmem": int(res.cycles_by_class[-1])}
     if res.n_waves:
         out["wave_cycles"] = [int(c) for c in res.wave_cycles]
+    if res.fleet is not None:
+        out["remote_gmem"] = int(res.fleet["remote_gmem_cycles"])
     return out
 
 
@@ -223,9 +228,46 @@ CASES["mixed_fft_qrd[4sm,dynamic,qrd-first]"] = (
     "mixed_fft_qrd[4sm,dynamic,qrd-first]",
     lambda: _mixed("dynamic", priorities=(0, 1), interleave=False),
     "megakernel")
-# every golden entry but the fleet's four
-_MISSING = set(GOLDEN) - {g for g, _, _ in CASES.values()}
-assert len(_MISSING) == 4 and all(g.startswith("fleet_") for g in _MISSING)
+
+
+def _fleet_mixed(route="block"):
+    dev = mixed_device(64, n_sms=2, backend="cpu")
+    sh_f = np.stack([fft_shmem(x, dev.sm.shmem_depth)
+                     for x in np.ones((6, 64), np.complex64)])
+    sh_q = np.stack([qrd_shmem(A, dev.sm.shmem_depth)
+                     for A in [np.eye(16, dtype=np.float32)] * 3])
+    return launch_fleet(FleetConfig(n_devices=2, device=dev, route=route),
+                        programs=[fft_kernel(64), qrd_kernel()],
+                        grid_map=[0, 1, 0, 1, 0, 1, 0, 0, 0],
+                        shmem=[sh_f, sh_q])
+
+
+def _fleet_saxpy(lat):
+    n, block = 256, 64
+    buffers = {"x": np.arange(n, dtype=np.float32),
+               "y": np.ones(n, np.float32), "z": np.zeros(n, np.float32),
+               "alpha": np.asarray([2.0], np.float32)}
+    dev = DeviceConfig(n_sms=2, global_mem_depth=1024, backend="cpu",
+                       sm=SMConfig(max_steps=10_000))
+    return launch_fleet(FleetConfig(n_devices=2, device=dev,
+                                    remote_gmem_latency=lat),
+                        saxpy_grid_program(n, block), grid=(n // block,),
+                        block=block, buffers=buffers)
+
+
+# the fleet: two devices of two SMs; "auto" runs the mixed grid's
+# sub-launches on the megakernel and SAXPY's on the step engine
+CASES["fleet_mixed_fft_qrd[2dev,2sm]"] = (
+    "fleet_mixed_fft_qrd[2dev,2sm]", _fleet_mixed, "megakernel")
+CASES["fleet_mixed_fft_qrd[2dev,2sm,kernel-route]"] = (
+    "fleet_mixed_fft_qrd[2dev,2sm,kernel-route]",
+    lambda: _fleet_mixed("kernel"), "megakernel")
+for _lat in (0, 7):
+    CASES[f"fleet_saxpy256_b64[2dev,numa{_lat}]"] = (
+        f"fleet_saxpy256_b64[2dev,numa{_lat}]",
+        lambda lat=_lat: _fleet_saxpy(lat), "step")
+# every golden entry
+assert set(GOLDEN) == {g for g, _, _ in CASES.values()}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -47,8 +47,13 @@ name and power limit.
   on the host's clock to the end of ``torch.cuda.synchronize()`` six
   times (``first_ms`` the first, with its host lowering; ``median_ms``
   the median of the other five), then held to the same launch on the
-  host (``chip_smoke.same_launch``). A fresh process per turn keeps what
-  else ran before out of the times.
+  host (``chip_smoke.same_launch``). Then the same grid of FFT-64 + QRD-16
+  on a fleet of two devices (``fleet2_fft64_qrd16``, through "auto") and
+  the serve benchmark's 24-request trace on a LaunchServer one request a
+  launch and batched (``serve24_serial``/``serve24_batched``,
+  ``chip_smoke.serve_run``), each held to its host run (a checkout
+  without the fleet or the server records ``raises``). A fresh process
+  per turn keeps what else ran before out of the times.
 
     python3 tools/turns.py segment --rows ROOT
 
@@ -239,25 +244,55 @@ def paths(cs, root: Path) -> dict:
                 lambda d: launch_reduction(xr, block=256, fused=True,
                                            device=d)[1],
                 dict(global_mem_depth=2048, sm=SMConfig(max_steps=50_000)))}
+    def timed(run):
+        """(first_ms, median_ms of five more, the last result)"""
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return dict(first_ms=walls[0],
+                    median_ms=float(np.median(walls[1:]))), res
+
     out = {}
     for name, (run, kw) in work.items():
         for engine in ("megakernel", "step", "trace"):
             dev = DeviceConfig(n_sms=4, engine=engine, **kw)
-            walls = []
             try:
-                for _ in range(6):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    res = run(dev)
-                    torch.cuda.synchronize()
-                    walls.append((time.perf_counter() - t0) * 1e3)
+                out[f"{name}_{engine}"], res = timed(lambda: run(dev))
             except NotImplementedError as e:
                 out[f"{name}_{engine}"] = dict(raises=str(e))
                 continue
             cs.same_launch(f"{name} {engine}", res, run(DeviceConfig(
                 n_sms=4, engine=engine, backend="cpu", **kw)))
-            out[f"{name}_{engine}"] = dict(
-                first_ms=walls[0], median_ms=float(np.median(walls[1:])))
+
+    # the fleet of two devices on the mixed grid (beside its plain launch,
+    # fft64_qrd16_megakernel), and the serve benchmark's trace one request
+    # a launch and batched; a checkout without them records ``raises``
+    fleet_names = ("fleet2_fft64_qrd16", "serve24_serial", "serve24_batched")
+    try:
+        from repro_torch.core import FleetConfig, launch_fleet
+        from repro_torch.core.programs import mixed_device
+        from repro_torch.serve import LaunchServer  # noqa: F401
+    except ImportError as e:
+        out.update({k: dict(raises=str(e)) for k in fleet_names})
+        return out
+    grid = cs.fft_qrd_grid(xs, As, 1024)
+
+    def fleet(backend=None):
+        return launch_fleet(FleetConfig(n_devices=2, device=mixed_device(
+            64, n_sms=4, backend=backend)), **grid)
+    out["fleet2_fft64_qrd16"], res = timed(fleet)
+    cs.same_launch("fleet2_fft64_qrd16", res, fleet("cpu"))
+    trace = cs.serve_trace(24)
+    for line, max_batch in (("serial", 1), ("batched", 8)):
+        out[f"serve24_{line}"], got = timed(
+            lambda: cs.serve_run(trace, max_batch))
+        cs.same_results(f"serve24_{line}", got,
+                        cs.serve_run(trace, max_batch, "cpu"))
+        out[f"serve24_{line}"].update(cs.serve_line(got))
     return out
 
 
