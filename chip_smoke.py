@@ -74,7 +74,22 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      must issue one launch, one CUDA kernel and no PyTorch operation (a
      TorchDispatchMode count and the profiler's count of CUDA kernels),
      beside the per-op composition of the same rows that the row seam
-     replaced;
+     replaced. The host's ``"cpu"`` backend runs the megakernel's fused
+     segments of a launch as their plan-time partial evaluation
+     (``executor.apply_segment_residual``) and the card's ``segment``
+     kernel runs the raw rows, so the main, merged, fleet and serve paths
+     hold the one against the other; each prints the rows the host ran
+     folded and as residual ops, and the rows the card ran raw;
+     coldstart: two fresh processes share one empty compile-cache
+     directory (``EGPU_CACHE_DIR``, under ``build/``) and each makes the
+     first launch of the merged FFT-64 x 64 + QRD-16 x 16 grid through
+     "auto" on the card: the first stores its lowering, the second must
+     find all of it (no miss, no error, hits on the trace, lowering and
+     megakernel kinds); both must equal the host's launch by state and
+     profile; their first-launch wall times are printed with the card;
+     examples: ``examples/torch_{quickstart,fft_pipeline,qrd_solver}.py``
+     each run on the card as a process of its own, which must exit 0 and
+     print no False check;
   4. reproduces the [4sm] golden entries and the fleet's four from
      tests/golden_cycles.json (the mixed FFT + QRD entries on the engine
      each names, "auto" where it names none);
@@ -2436,6 +2451,169 @@ def time_kernel_layer(rng, dev, iters: int = 200) -> dict[str, dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# cold start through the persistent compile cache, and the examples
+# ---------------------------------------------------------------------------
+
+def coldstart_inputs():
+    """The merged grid's inputs: FFT-64 x 64 and QRD-16 x 16, seeded."""
+    rng = np.random.default_rng(20261019)
+    xs = (rng.standard_normal((64, 64))
+          + 1j * rng.standard_normal((64, 64))).astype(np.complex64)
+    As = rng.standard_normal((16, 16, 16)).astype(np.float32)
+    return xs, As
+
+
+def coldstart_child(root: str, out: str) -> None:
+    """One fresh process's first launch of the merged FFT-64 x 64 +
+    QRD-16 x 16 grid (``launch_fft_qrd``, ``mixed_device(64, n_sms=4)``,
+    through "auto") on the card, with the checkout at ``root`` and the
+    compile cache ``EGPU_CACHE_DIR`` names (a checkout without the cache
+    lowers as it always does). The kernels' libraries and the card's
+    context are loaded before the clock starts, so the wall time is the
+    launch with its host lowering. Writes the state, ``profile()``, the
+    wall time, the cache's stats and the launch counts to ``out``
+    (.npz)."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    from repro_torch.convert import launch_result_to_numpy
+    from repro_torch.core.programs import launch_fft_qrd, mixed_device
+    from repro_torch.kernels import build
+
+    for fn in build._ENTRY_POINTS:
+        build.entry_point(fn)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    xs, As = coldstart_inputs()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = launch_fft_qrd(xs, As, device=mixed_device(64, n_sms=4))[3]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        from repro_torch.core import compile_cache
+        stats = compile_cache.stats()
+    except ImportError:
+        stats = None
+    state = launch_result_to_numpy(res)
+    np.savez(out, **{k: state[k] for k in ("regs", "shmem", "gmem", "oob")},
+             profile=json.dumps(res.profile(), sort_keys=True),
+             engine=res.engine, wall_ms=wall_ms, stats=json.dumps(stats),
+             launches=json.dumps(dict(build.launches)))
+
+
+def coldstart_pair(root: Path, scratch: Path) -> list[dict]:
+    """Two fresh processes of ``coldstart_child`` on one empty cache
+    directory: the first lowers and stores, the second finds its
+    lowering there. Returns each one's record (its state in ``state``)."""
+    import os
+
+    cache = scratch / "cache"
+    runs = []
+    for turn in ("cold", "warm"):
+        out = scratch / f"{turn}.npz"
+        subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--coldstart-child",
+             str(root), str(out)], check=True, timeout=600,
+            env={**os.environ, "EGPU_CACHE_DIR": str(cache)})
+        with np.load(out) as z:
+            runs.append(dict(
+                turn=turn, first_ms=float(z["wall_ms"]),
+                engine=str(z["engine"]), stats=json.loads(str(z["stats"])),
+                launches=json.loads(str(z["launches"])),
+                profile=str(z["profile"]),
+                state={k: z[k] for k in ("regs", "shmem", "gmem", "oob")}))
+    return runs
+
+
+def coldstart():
+    """The first launch of the merged FFT-64 + QRD-16 grid in a fresh
+    process, with an empty compile cache and then with the cache the first
+    process filled: the warm one must lower nothing (no miss, no error,
+    hits on all three kinds), and both must launch the megakernel's
+    ``segment`` kernel and equal each other and the ``"cpu"`` backend's
+    launch in this process, by state and profile."""
+    import tempfile
+
+    from repro_torch.convert import launch_result_to_numpy
+    from repro_torch.core.programs import launch_fft_qrd, mixed_device
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        cold, warm = coldstart_pair(ROOT, Path(d))
+    xs, As = coldstart_inputs()
+    host = launch_fft_qrd(xs, As, device=mixed_device(64, n_sms=4,
+                                                      backend="cpu"))[3]
+    want = launch_result_to_numpy(host)
+    want_profile = json.dumps(host.profile(), sort_keys=True)
+    for run in (cold, warm):
+        name = f"coldstart {run['turn']}"
+        for k, v in run.pop("state").items():
+            if not np.array_equal(v, want[k]):
+                raise AssertionError(f"{name}: {k} differs from the host's")
+        if run.pop("profile") != want_profile:
+            raise AssertionError(f"{name}: profile() differs from the host's")
+        if run["engine"] != "megakernel" or not run["launches"]["segment"]:
+            raise AssertionError(f"{name}: no segment launch ({run})")
+    cs, ws = cold["stats"], warm["stats"]
+    if not cs["stores"] or cs["errors"]:
+        raise AssertionError(f"coldstart: the cold process stored {cs}")
+    if ws["misses"] or ws["errors"] or not all(
+            ws["by_kind"].get(k, {}).get("hits") for k in
+            ("trace", "lowering", "megakernel")):
+        raise AssertionError(f"coldstart: the warm process missed: {ws}")
+    card = card_line()
+    for run in (cold, warm):
+        print(f"coldstart {run['turn']}: first launch "
+              f"{run['first_ms']} ms ({card}); cache {run['stats']}")
+    return {r["turn"]: {k: r[k] for k in ("first_ms", "stats", "launches")}
+            for r in (cold, warm)}
+
+
+EXAMPLES = ("torch_quickstart", "torch_fft_pipeline", "torch_qrd_solver")
+
+
+def run_examples() -> dict[str, float]:
+    """The port's three core examples on the card, each as a process of
+    its own: each must exit 0 and print no ``False`` check. Returns each
+    one's wall ms."""
+    import os
+
+    walls = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py")],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                [str(ROOT / "src")] + [p for p in os.environ.get(
+                    "PYTHONPATH", "").split(os.pathsep) if p])})
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        for line in out.stdout.splitlines():
+            print(f"{name}: {line}")
+        if out.returncode:
+            raise AssertionError(f"{name} exited {out.returncode}:\n"
+                                 f"{out.stderr[-4000:]}")
+        words = out.stdout.replace(",", " ").split()
+        if "False" in words or "True" not in words:
+            raise AssertionError(f"{name}: a check printed False")
+    return walls
+
+
+def with_segment_rows(fn):
+    """``fn()`` and the fused-segment rows run meanwhile: the card's
+    ``cuda`` backend runs raw rows, the host's folding backends the plan's
+    residual ops, the rest folded at plan time."""
+    from repro_torch.core import executor
+
+    executor.reset_segment_rows()
+    out = fn()
+    rows = dict(executor.segment_rows)
+    if not (rows["raw"] and rows["residual"] and rows["folded"]):
+        raise AssertionError(f"segment rows: {rows}")
+    return out, rows
+
+
 def main() -> int:
     import torch
 
@@ -2467,15 +2645,28 @@ def main() -> int:
         "hand-kernels-vs-plain", lambda: check_kernel_layer(rng, dev))
     errs.update(layer_err)
     paths = {}
-    paths["main-path"] = phases.run("main-path", lambda: main_path(rng))
+    # the rows of fused segments each megakernel path ran: raw on the card,
+    # as residual ops or folded on the host it is held against
+    seg_rows = {}
+    paths["main-path"], seg_rows["main-path"] = phases.run(
+        "main-path", lambda: with_segment_rows(lambda: main_path(rng)))
     counts, per, keep = phases.run("step-path", lambda: step_path(rng))
     paths["step-path"] = (counts, per)
     paths["trace-path"] = phases.run("trace-path", lambda: trace_path(keep))
-    paths["merged-path"] = phases.run(
-        "merged-path", lambda: merged_path(np.random.default_rng(20261017)))
-    paths["fleet-path"] = phases.run(
-        "fleet-path", lambda: fleet_path(np.random.default_rng(20261018)))
-    paths["serve-path"] = phases.run("serve-path", serve_path)
+    paths["merged-path"], seg_rows["merged-path"] = phases.run(
+        "merged-path", lambda: with_segment_rows(
+            lambda: merged_path(np.random.default_rng(20261017))))
+    paths["fleet-path"], seg_rows["fleet-path"] = phases.run(
+        "fleet-path", lambda: with_segment_rows(
+            lambda: fleet_path(np.random.default_rng(20261018))))
+    paths["serve-path"], seg_rows["serve-path"] = phases.run(
+        "serve-path", lambda: with_segment_rows(serve_path))
+    for name, r in seg_rows.items():
+        print(f"residual {name}: the host ran {r['folded']} rows folded "
+              f"and {r['residual']} residual ops; the card ran {r['raw']} "
+              f"raw rows")
+    cold = phases.run("coldstart", coldstart)
+    example_ms = phases.run("examples", run_examples)
     per_row = phases.run("row-issue", lambda: {
         "main-path": row_issue("megakernel"),
         "step-path": row_issue("step"), "trace-path": row_issue("trace")})
@@ -2522,6 +2713,8 @@ def main() -> int:
         "library_3d_device_ms": {k: v["library_3d_device_ms"]
                                  for k, v in timing.items()
                                  if "library_3d_device_ms" in v},
+        "segment_rows": seg_rows, "coldstart": cold,
+        "example_ms": example_ms,
         "phase_ms": phases.ms, "card": card}))
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCES[k],
@@ -2540,4 +2733,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--coldstart-child"] and len(sys.argv) == 4:
+        coldstart_child(sys.argv[2], sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -22,6 +22,8 @@ Public API:
     MergedTraceSchedule, compile_merged, — heterogeneous waves on the
     MergedMegakernelPlan,                  trace and megakernel engines
     compile_merged_megakernel
+    compile_cache                        — the opt-in persistent cache of
+                                           host lowerings (EGPU_CACHE_DIR)
     ExecBackend, execute_backends,       — "cuda" (kernels on the card) and
     register_backend,                      "cpu" (plain versions on the host),
     register_execute_backend               and backends of one's own
@@ -63,7 +65,7 @@ from .machine import (
     shmem_i32,
 )
 from .packing import PACKINGS, WavePacking, pack_waves
-from . import resources
+from . import compile_cache, resources
 from .scheduler import Schedule, merge_schedules, schedule_blocks
 from .trace_engine import (
     ENGINES,
@@ -94,5 +96,5 @@ __all__ = [
     "ENGINES", "MegakernelPlan", "MergedMegakernelPlan",
     "MergedTraceSchedule", "TraceSchedule", "compile_megakernel",
     "compile_merged", "compile_merged_megakernel", "compile_program",
-    "resources",
+    "compile_cache", "resources",
 ]

@@ -257,10 +257,52 @@ def _trace_walk(words: tuple[int, ...], n_threads: int, imem_depth: int,
                         n_threads=n_threads)
 
 
+def trace_to_plain(tr: ProgramTrace) -> tuple:
+    """A trace as plain data for the compile cache: ``(halted, n_threads,
+    instrs)``, ``instrs`` an (n, 5) int64 array of (op, klass, cycles,
+    gmem, pc) rows."""
+    import numpy as np
+
+    rows = np.asarray([(int(t.op), t.klass, t.cycles, int(t.gmem), t.pc)
+                       for t in tr.instrs], np.int64).reshape(-1, 5)
+    return (bool(tr.halted), int(tr.n_threads), rows)
+
+
+def trace_is_plain(v) -> bool:
+    """Whether ``v`` has ``trace_to_plain``'s layout."""
+    from . import compile_cache as cc
+
+    return (cc.is_record(v, 3) and isinstance(v[0], bool)
+            and isinstance(v[1], int) and cc.is_array(v[2], "int64", 2)
+            and v[2].shape[1] == 5)
+
+
+def trace_from_plain(v) -> ProgramTrace:
+    halted, n_threads, rows = v
+    return ProgramTrace(
+        instrs=tuple(TraceInstr(op=Op(int(op)), klass=int(k), cycles=int(c),
+                                gmem=bool(g), pc=int(pc))
+                     for op, k, c, g, pc in rows.tolist()),
+        halted=halted, n_threads=n_threads)
+
+
 @functools.lru_cache(maxsize=256)
 def _trace_cached(words: tuple[int, ...], n_threads: int, imem_depth: int,
                   max_steps: int) -> ProgramTrace:
-    return _trace_walk(words, n_threads, imem_depth, max_steps)
+    # the tier behind the in-process LRU: the opt-in persistent compile
+    # cache (core.compile_cache), so a fresh process loads the walk instead
+    # of re-sequencing the program; a bad entry loads as None (a miss) and
+    # is rewritten below
+    from . import compile_cache
+
+    ckey = compile_cache.key_for(
+        "trace", words, (n_threads, imem_depth, max_steps))
+    hit = compile_cache.load(ckey, trace_is_plain)
+    if hit is not None:
+        return trace_from_plain(hit)
+    tr = _trace_walk(words, n_threads, imem_depth, max_steps)
+    compile_cache.store(ckey, trace_to_plain(tr))
+    return tr
 
 
 def program_trace(program, n_threads: int, *, imem_depth: int = 512,

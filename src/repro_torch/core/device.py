@@ -30,6 +30,7 @@ The state lives on the device the execute backend names: ``"cuda"``
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Mapping, Sequence
 
@@ -850,7 +851,10 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
             sh = _kernel_shmem(shmems[k], cfgs[k].shmem_depth, pos.size, k)
             sh_batches[k] = None if sh is None else sh.to(device)
         plan_of: dict[tuple[int, ...], Any] = {}
-        run_merged = trace_engine.run_wave_merged_megakernel \
+        # every wave starts from zeroed registers, so a backend that folds
+        # may run the merged plan's partial evaluation
+        run_merged = functools.partial(
+            trace_engine.run_wave_merged_megakernel, zeroed=True) \
             if eng == "megakernel" else trace_engine.run_wave_merged
         per_wave: list[dict[str, Any]] = []
         for wave_ids in wp.waves:
@@ -934,8 +938,12 @@ def launch(dcfg: DeviceConfig, program=None, grid=None,
                     fin = trace_engine.run_wave_trace(cfg, be, plans[k], bidx,
                                                       pidx, st)
                 else:
+                    # every launch wave starts from init_device_state's
+                    # zeroed registers, so a backend that folds may run
+                    # the plan's partial evaluation
                     fin = trace_engine.run_wave_megakernel(be, plans[k], bidx,
-                                                           pidx, st)
+                                                           pidx, st,
+                                                           zeroed=True)
                 gm = fin.gmem               # batches run back to back
                 fin_shmem = fin.shmem
                 if cfg.shmem_depth < shmem_pad:

@@ -23,12 +23,15 @@ This module holds the execute stage of every engine:
     over an SM batch, in plain PyTorch. This is the plain version the
     ``segment`` CUDA kernel is held against, and the CPU path of
     ``kernels.simt_step.simt_segment``;
-  * ``exec_segment`` — a fused run through the segment kernel;
+  * ``exec_segment`` — a fused run through the segment kernel, or
+    through its partial evaluation;
   * ``FusedSegment`` / ``eval_segment_rows`` — the plan-time partial
     evaluator: which rows of a segment fold away on zeroed registers (the
-    megakernel plans' fold counts; execution runs the raw rows);
+    megakernel plans' fold counts) — and ``apply_segment_residual``, which
+    runs what is left of a segment for a wave that starts zeroed;
   * the ``ExecBackend`` registry: ``"cuda"`` (tensors on the card, the
-    kernels) and ``"cpu"`` (tensors on the host, their plain versions),
+    kernels) and ``"cpu"`` (tensors on the host, their plain versions,
+    and the residual of zeroed launch waves' segments),
     each with the row seam ``alu_row``/``lod_row``/``sto_row``/
     ``gld_row``/``gst_row`` (a whole row, on the card one launch in
     place);
@@ -329,20 +332,45 @@ def apply_segment_rows(cfg, rows, block_idx, prog_idx, regs, shmem, oob, *,
     return torch.stack(cols, dim=2), shmem, oob
 
 
+# rows of fused segments run since the last ``reset_segment_rows()``:
+# ``raw`` through the segment kernel (or its plain version), ``residual``
+# as residual ops of ``apply_segment_residual`` and ``folded`` evaluated
+# away at plan time
+segment_rows = {"raw": 0, "residual": 0, "folded": 0}
+
+
+def reset_segment_rows() -> None:
+    for k in segment_rows:
+        segment_rows[k] = 0
+
+
 def exec_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
-                 oob, *, shmem_depth: int | None = None, barriers=None):
-    """Run one fused segment through the segment kernel (the CUDA kernel
-    for tensors on the card, its plain version for tensors on the host).
-    ``rows`` is the segment's raw row table (a ``FusedSegment``'s
-    ``rows``, packed) and ``barriers`` its ``segment_barriers`` bits,
-    already on the state's device."""
+                 oob, *, shmem_depth: int | None = None, barriers=None,
+                 backend: "ExecBackend | None" = None,
+                 seg: "FusedSegment | None" = None):
+    """Run one fused segment: its partial evaluation
+    (``apply_segment_residual``) when ``seg`` is given and ``backend``
+    folds constants, else the raw rows through the segment kernel (the
+    CUDA kernel for tensors on the card, its plain version for tensors on
+    the host). ``rows`` is the segment's raw row table (``seg.rows``,
+    packed) and ``barriers`` its ``segment_barriers`` bits, already on
+    the state's device. Pass ``seg`` (and its wave's ``backend``) only
+    for a wave that started from ``device.init_device_state``'s zeroed
+    registers: the residual holds for no other."""
+    if seg is not None and backend.fold_constants:
+        segment_rows["residual"] += len(seg.residual)
+        segment_rows["folded"] += seg.n_folded
+        return apply_segment_residual(cfg, backend, seg, block_idx,
+                                      prog_idx, regs, shmem, oob,
+                                      shmem_depth=shmem_depth)
+    segment_rows["raw"] += int(rows.shape[0])
     return simt_step.simt_segment(cfg, rows, block_idx, prog_idx, regs,
                                   shmem, oob, shmem_depth=shmem_depth,
                                   barriers=barriers)
 
 
 # ---------------------------------------------------------------------------
-# plan-time partial evaluation (the megakernel plan's fold counts)
+# plan-time partial evaluation and the residual executor
 # ---------------------------------------------------------------------------
 #
 # Every wave of a launch starts from zeroed registers
@@ -354,10 +382,16 @@ def exec_segment(cfg, rows: torch.Tensor, block_idx, prog_idx, regs, shmem,
 # ``_fold_row`` evaluates it with the same ``_apply_row_cols`` body. A
 # LOD or STO row with a known address column resolves its addresses on
 # the host. The result is the reference's ``FusedSegment``: its fold
-# count is what ``profile()["trace_merge"]["fusion"]`` reports. Execution
-# does not use the residual: the segment kernel and its plain version run
-# the raw rows, from any state (the residual holds only under the
-# zero-init contract).
+# count is what ``profile()["trace_merge"]["fusion"]`` reports, and its
+# residual is what ``apply_segment_residual`` runs.
+#
+# The residual holds only for waves that start from zeroed registers.
+# Backends opt in with ``ExecBackend.fold_constants`` ("cpu" does, as the
+# reference's "inline" backend does), and the engines hand a segment's
+# partial evaluation to ``exec_segment`` only for waves ``device.launch``
+# started from ``init_device_state``; every other wave, and every backend
+# that does not fold (the card's "cuda", whose segment kernel runs the
+# raw rows, and backends registered without the flag), runs the raw rows.
 
 @dataclasses.dataclass(frozen=True)
 class FusedSegment:
@@ -503,6 +537,60 @@ def eval_segment_rows(cfg, rows, const_cols, depth: int):
             const_cols)
 
 
+def apply_segment_residual(cfg, backend: "ExecBackend", seg: FusedSegment,
+                           block_idx, prog_idx, regs, shmem, oob, *,
+                           shmem_depth: int | None = None):
+    """Run one partially evaluated segment over an SM batch (plain
+    PyTorch on the state's device).
+
+    ``"exec"`` ops run through ``_apply_row_cols`` over unpacked register
+    columns, as ``apply_segment_rows`` runs every row; a static ``"lod"``
+    is a gather at its host-resolved addresses under its mask; a static
+    ``"sto"`` writes each target address its precomputed winning thread's
+    value. Folded columns are materialised only where an op reads them
+    and at the final repack. ``backend`` is the caller's (the row bodies
+    are the plain versions whatever it is). Valid only for a wave that
+    started from zeroed registers (see the comment above
+    ``FusedSegment``); ``regs``, ``shmem`` and ``oob`` are not written."""
+    n = regs.shape[0]
+    device = regs.device
+    cols = [regs[:, :, r] for r in range(regs.shape[2])]
+
+    def host(v, dtype):
+        return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+    def mat(v):
+        return host(v.view(np.int32), torch.int32)[None].expand(
+            n, MAX_THREADS)
+
+    for kind, row, data, consts in seg.residual:
+        for r, v in consts:
+            cols[r] = mat(v)
+        rd = row.d["rd"]
+        if kind == "exec":
+            cols, shmem, oob = _apply_row_cols(
+                cfg, row, cols, shmem, oob, block_idx, prog_idx,
+                shmem_depth)
+        elif kind == "lod":
+            safe, mask, bad_any = data
+            vals = shmem[:, host(safe, torch.int64)]
+            cols[rd] = torch.where(host(mask, torch.bool)[None], vals,
+                                   cols[rd])
+            if bad_any:
+                oob = torch.ones_like(oob)
+        else:                                      # static-address STO
+            targets, winners, bad_any = data
+            if len(targets):
+                shmem = shmem.clone()
+                shmem[:, host(targets, torch.int64)] = \
+                    cols[rd][:, host(winners, torch.int64)]
+            if bad_any:
+                oob = torch.ones_like(oob)
+    for r, v in seg.final_consts:
+        cols[r] = mat(v)
+    return torch.stack(cols, dim=2), shmem, oob
+
+
 def _last_writer_write(mem, addr, vals, do):
     """Serialized single-port store over a batch of memories: ``mem``
     (n, depth), ``addr``/``vals``/``do`` (n, k). Among enabled writers to
@@ -545,6 +633,11 @@ class ExecBackend:
     sto_row: Callable
     gld_row: Callable
     gst_row: Callable
+    # run the megakernel's fused segments of zeroed launch waves as their
+    # plan-time partial evaluation (``apply_segment_residual``): folded
+    # rows never reach the segment kernel, so a backend that must run
+    # every row leaves this False
+    fold_constants: bool = False
 
 
 _EXECUTE_BACKENDS: dict[str, ExecBackend] = {}
@@ -597,8 +690,9 @@ def backend_device(name: str) -> torch.device:
     return torch.device(dev)
 
 
-# the card: the five row kernels, in place; the host: their plain
-# versions, out of place
+# the card: the five row kernels, in place, and the segment kernel over
+# the raw rows; the host: their plain versions, out of place, and the
+# segments' partial evaluation on zeroed launch waves
 register_backend(ExecBackend(
     name="cuda", device="cuda", alu_row=simt_alu.simt_alu_row,
     lod_row=simt_step.simt_lod_row, sto_row=simt_step.simt_sto_row,
@@ -606,7 +700,8 @@ register_backend(ExecBackend(
 register_backend(ExecBackend(
     name="cpu", device="cpu", alu_row=simt_alu.alu_row_plain,
     lod_row=simt_step.lod_row_plain, sto_row=simt_step.sto_row_plain,
-    gld_row=simt_step.gld_row_plain, gst_row=simt_step.gst_row_plain))
+    gld_row=simt_step.gld_row_plain, gst_row=simt_step.gst_row_plain,
+    fold_constants=True))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,10 @@ megakernel, the fold counts of the plan-time partial evaluator
 Cycle counters never come from execution: they are the static trace's
 (``trace.static_cycles`` / ``cycles_by_class``), which the golden-cycle
 suite pins.
+
+Schedules and plans are cached per process (``compile_cache_info`` /
+``compile_cache_clear``) and, opt-in, on disk across processes
+(``core.compile_cache``: the ``"lowering"`` and ``"megakernel"`` kinds).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from . import compile_cache, cycles
 from .cycles import ProgramTrace, program_trace
 from .executor import (
     DATA_SEL_OF_OP,
@@ -52,6 +57,7 @@ from .executor import (
     FUSED_SELS,
     ExecBackend,
     FusedRow,
+    FusedSegment,
     _decode,
     eval_segment_rows,
     exec_segment,
@@ -121,8 +127,9 @@ class TraceSchedule:
         return self.by_class_base + (wave_n - 1) * self.by_class_gmem
 
 
-@functools.lru_cache(maxsize=256)
-def _compile_cached(words_key: tuple, cfg: SMConfig) -> TraceSchedule:
+def _lower(words_key: tuple, cfg: SMConfig) -> tuple:
+    """Walk and decode one program: its trace and the (n_steps,) int32
+    column of each decoded field, one row per data instruction."""
     trace = program_trace(np.asarray(words_key, np.int64), cfg.n_threads,
                           imem_depth=cfg.imem_depth, max_steps=cfg.max_steps)
     # data steps only: rows whose handler has an architectural data effect
@@ -152,7 +159,36 @@ def _compile_cached(words_key: tuple, cfg: SMConfig) -> TraceSchedule:
         act_waves=depth_table[d["depth"]],
         act_wthreads=width_table[d["width"]],
     )
-    cols = {f: np.asarray(cols[f], np.int32) for f in FIELDS}
+    return trace, {f: np.asarray(cols[f], np.int32) for f in FIELDS}
+
+
+def _lowering_is_plain(v) -> bool:
+    """Whether a ``"lowering"`` entry has the current layout: the trace
+    and every column of ``FIELDS``, int32, one row per data step."""
+    if not (isinstance(v, dict) and set(v) == {"trace", "cols"}
+            and cycles.trace_is_plain(v["trace"])
+            and isinstance(v["cols"], dict)
+            and set(FIELDS) <= set(v["cols"])):
+        return False
+    n = int((DATA_SEL_OF_OP[v["trace"][2][:, 0]] != 0).sum())
+    return all(compile_cache.is_array(v["cols"][f], "int32", 1, n)
+               for f in FIELDS)
+
+
+@functools.lru_cache(maxsize=256)
+def _compile_cached(words_key: tuple, cfg: SMConfig) -> TraceSchedule:
+    # the tier behind the in-process LRU: the opt-in persistent compile
+    # cache holds the trace and the decoded columns; the rows and the
+    # per-class reductions are rebuilt from them
+    ckey = compile_cache.key_for("lowering", words_key, cfg)
+    payload = compile_cache.load(ckey, _lowering_is_plain)
+    if payload is not None:
+        trace = cycles.trace_from_plain(payload["trace"])
+        cols = {f: payload["cols"][f] for f in FIELDS}
+    else:
+        trace, cols = _lower(words_key, cfg)
+        compile_cache.store(ckey, {"trace": cycles.trace_to_plain(trace),
+                                   "cols": cols})
     by_base = np.asarray(trace.cycles_by_class(1), np.int64)
     by_gmem = np.zeros((NUM_CLASSES,), np.int64)
     for t in trace.instrs:
@@ -169,6 +205,20 @@ def compile_program(program, cfg: SMConfig) -> TraceSchedule:
     cached per ``(program words, SMConfig)``."""
     words = program.words if hasattr(program, "words") else program
     return _compile_cached(tuple(int(w) for w in words), cfg)
+
+
+def compile_cache_info():
+    """The in-process schedule cache's ``lru_cache`` counters."""
+    return _compile_cached.cache_info()
+
+
+def compile_cache_clear() -> None:
+    """Empty the in-process schedule, plan and merge caches (the
+    persistent compile cache on disk is left as it is)."""
+    _compile_cached.cache_clear()
+    _merge_cached.cache_clear()
+    _megakernel_cached.cache_clear()
+    _merged_megakernel_cached.cache_clear()
 
 
 def _wave_index(x, device) -> torch.Tensor:
@@ -331,17 +381,112 @@ class MegakernelPlan:
         return self._upload("barriers", self.barriers, device)
 
 
+def _plan_to_plain(sched: TraceSchedule, items, segments, barriers) -> tuple:
+    """A plan's host parts as plain data for the compile cache: ``(spans,
+    barriers, segments)``. ``spans`` is an (n_items, 3) int64 array of
+    (0 fused / 1 global-port, start, stop) schedule rows; each segment is
+    ``(residual, final_consts, n_folded)``, a residual op ``(kind, row,
+    data, consts)`` naming its row by its index in the segment."""
+    index = {id(r): i for i, r in enumerate(sched.rows)}
+    spans = np.asarray([(0, *p) if kind == "fused"
+                        else (1, index[id(p)], index[id(p)] + 1)
+                        for kind, p in items], np.int64).reshape(-1, 3)
+    segs = []
+    for (kind, (start, _)), seg in zip(
+            (it for it in items if it[0] == "fused"), segments):
+        segs.append((tuple((k, index[id(row)] - start, data, consts)
+                           for k, row, data, consts in seg.residual),
+                     seg.final_consts, int(seg.n_folded)))
+    return spans, barriers, tuple(segs)
+
+
+def _consts_are_plain(consts) -> bool:
+    return isinstance(consts, tuple) and all(
+        compile_cache.is_record(c, 2) and isinstance(c[0], int)
+        and 0 <= c[0] < N_REGS
+        and compile_cache.is_array(c[1], "uint32", 1, MAX_THREADS)
+        for c in consts)
+
+
+def _residual_op_is_plain(op, n_rows: int) -> bool:
+    is_array = compile_cache.is_array
+    if not (compile_cache.is_record(op, 4) and isinstance(op[1], int)
+            and 0 <= op[1] < n_rows and _consts_are_plain(op[3])):
+        return False
+    kind, data = op[0], op[2]
+    if kind == "exec":
+        return data is None
+    if kind not in ("lod", "sto") or not compile_cache.is_record(data, 3) \
+            or not isinstance(data[2], bool):
+        return False
+    if kind == "lod":
+        return (is_array(data[0], "int32", 1, MAX_THREADS)
+                and is_array(data[1], "bool", 1, MAX_THREADS))
+    return (is_array(data[0], "int32", 1) and is_array(data[1], "int32", 1)
+            and data[0].shape == data[1].shape)
+
+
+def _plan_is_plain(v, n_steps: int) -> bool:
+    """Whether a ``"megakernel"`` entry has the current layout for a
+    schedule of ``n_steps`` rows."""
+    is_array = compile_cache.is_array
+    if not (compile_cache.is_record(v, 3) and is_array(v[0], "int64", 2)
+            and v[0].shape[1] == 3 and is_array(v[1], "int32", 1, n_steps)
+            and isinstance(v[2], tuple)):
+        return False
+    spans = v[0].tolist()
+    fused = [(a, b) for k, a, b in spans if k == 0]
+    if len(fused) != len(v[2]) or any(
+            k not in (0, 1) or not 0 <= a < b <= n_steps for k, a, b in spans):
+        return False
+    return all(
+        compile_cache.is_record(seg, 3) and isinstance(seg[0], tuple)
+        and all(_residual_op_is_plain(op, b - a) for op in seg[0])
+        and _consts_are_plain(seg[1]) and isinstance(seg[2], int)
+        for (a, b), seg in zip(fused, v[2]))
+
+
+def _plan_from_plain(v, sched: TraceSchedule) -> tuple:
+    """``(items, segments, barriers)`` rebuilt over ``sched``'s rows."""
+    spans, barriers, segs = v
+    items = tuple(("fused", (a, b)) if k == 0 else ("gmem", sched.rows[a])
+                  for k, a, b in spans.tolist())
+    fused = [p for kind, p in items if kind == "fused"]
+    segments = []
+    for (a, b), (residual, final_consts, n_folded) in zip(fused, segs):
+        rows = sched.rows[a:b]
+        segments.append(FusedSegment(
+            rows=rows,
+            residual=tuple((kind, rows[i], data, consts)
+                           for kind, i, data, consts in residual),
+            final_consts=final_consts, n_folded=n_folded))
+    return items, tuple(segments), barriers
+
+
 @functools.lru_cache(maxsize=256)
 def _megakernel_cached(words_key: tuple, cfg: SMConfig) -> MegakernelPlan:
     sched = _compile_cached(words_key, cfg)
-    items = _segment_items(sched.rows)
-    table = sched.table
-    barriers = np.zeros((sched.n_steps,), np.int32)
-    for kind, payload in items:
-        if kind == "fused":
-            start, stop = payload
-            barriers[start:stop] = segment_barriers(table[start:stop])
-    segments = _partial_eval_items(items, sched.rows, cfg, cfg.shmem_depth)
+    # the tier behind the in-process LRU: the plan's host parts (its
+    # items, barriers and partial evaluation) in the persistent compile
+    # cache; its device tables are uploaded anew in each process
+    ckey = compile_cache.key_for("megakernel", words_key, cfg,
+                                 engine="megakernel")
+    payload = compile_cache.load(
+        ckey, functools.partial(_plan_is_plain, n_steps=sched.n_steps))
+    if payload is not None:
+        items, segments, barriers = _plan_from_plain(payload, sched)
+    else:
+        items = _segment_items(sched.rows)
+        table = sched.table
+        barriers = np.zeros((sched.n_steps,), np.int32)
+        for kind, payload in items:
+            if kind == "fused":
+                start, stop = payload
+                barriers[start:stop] = segment_barriers(table[start:stop])
+        segments = _partial_eval_items(items, sched.rows, cfg,
+                                       cfg.shmem_depth)
+        compile_cache.store(ckey, _plan_to_plain(sched, items, segments,
+                                                 barriers))
     return MegakernelPlan(key=words_key, cfg=cfg, sched=sched, items=items,
                           segments=segments, barriers=barriers)
 
@@ -354,11 +499,17 @@ def compile_megakernel(program, cfg: SMConfig) -> MegakernelPlan:
 
 
 def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
-                        block_idx, prog_idx, state):
+                        block_idx, prog_idx, state, *, zeroed: bool = False):
     """Run one homogeneous wave: fused segments through the segment
     kernel, global-port rows through ``backend``'s GLD and GST row seam,
     on the device the state lives on. Counters come from the static
     trace.
+
+    ``zeroed=True`` says the wave starts from ``init_device_state``'s
+    zeroed registers (``device.launch`` says so for every wave it runs);
+    then a backend that folds constants runs each segment's partial
+    evaluation (``executor.apply_segment_residual``). Any other wave runs
+    the raw rows.
 
     ``state`` is not written. A segment returns new tensors; a GLD row
     writes ``regs`` and ``oob`` in place and a GST row ``gmem`` and
@@ -376,12 +527,15 @@ def run_wave_megakernel(backend: ExecBackend, plan: MegakernelPlan,
         regs, oob = _own(regs), _own(oob)
     if plan.sched.stores_gmem:
         gmem = _own(gmem)
+    segments = iter(plan.segments)
     for kind, payload in plan.items:
         if kind == "fused":
             start, stop = payload
+            seg = next(segments)
             regs, shmem, oob = exec_segment(
                 plan.cfg, table[start:stop], bidx, pidx, regs, shmem, oob,
-                barriers=barriers[start:stop])
+                barriers=barriers[start:stop], backend=backend,
+                seg=seg if zeroed else None)
         else:
             handler = make_data_handlers(plan.cfg, backend, payload, bidx,
                                          pidx)
@@ -663,14 +817,17 @@ def compile_merged_megakernel(programs, cfgs) -> MergedMegakernelPlan:
 
 def run_wave_merged_megakernel(backend: ExecBackend,
                                mplan: MergedMegakernelPlan, counts,
-                               block_idx, prog_idx, regs, shmem, gmem, oob):
+                               block_idx, prog_idx, regs, shmem, gmem, oob,
+                               *, zeroed: bool = False):
     """Run one heterogeneous wave on the megakernel engine, with the
     member order of ``run_wave_merged``. A fused item of slot ``k`` is
     one segment launch on slot ``k``'s SMs, with its program's row table
     and barrier bits (uploaded once per device, kept with its plan); a
-    global-port item runs the GLD or GST row seam on the same SMs. The
-    inputs are not written; returns the new ``(regs, shmem, gmem,
-    oob)``."""
+    global-port item runs the GLD or GST row seam on the same SMs.
+    ``zeroed`` is ``run_wave_megakernel``'s: only a wave that starts from
+    zeroed registers runs its segments' partial evaluation, on a backend
+    that folds constants. The inputs are not written; returns the new
+    ``(regs, shmem, gmem, oob)``."""
     device = regs.device
     offs = _slot_offsets(counts)
     slots = _slot_data(regs, shmem, oob, offs)
@@ -680,15 +837,18 @@ def run_wave_merged_megakernel(backend: ExecBackend,
     if mplan.stores_gmem:
         gmem = _own(gmem)
     handlers = mplan.gmem_handlers(backend)
+    segments = iter(mplan.segments)
     for h, (kind, k, payload) in zip(handlers, mplan.items):
         r, s, o = slots[k]
         if kind == "fused":
             start, stop = payload
             table, barriers = tables[k]
+            seg = next(segments)
             r, s, o = exec_segment(
                 mplan.cfgs[k], table[start:stop], *index[k], r, s, o,
                 shmem_depth=mplan.cfgs[k].shmem_depth,
-                barriers=barriers[start:stop])
+                barriers=barriers[start:stop], backend=backend,
+                seg=seg if zeroed else None)
         else:
             r, s, gmem, o = h((r, s, gmem, o))
         slots[k] = [r, s, o]

@@ -948,3 +948,92 @@ def test_shard_map_placement_runs_a_device_per_card(dev):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert got.gmem.device == want.gmem.device
     assert run("cuda").profile()["fleet"]["placement"] == "shard_map"
+
+
+def _fresh_lowering():
+    from repro_torch.core import cycles, trace_engine
+
+    trace_engine.compile_cache_clear()
+    cycles._trace_cached.cache_clear()
+
+
+@pytest.mark.cuda
+def test_plan_loaded_from_disk_runs_on_the_card_as_a_fresh_one(
+        dev, tmp_path, monkeypatch):
+    from repro_torch.core import compile_cache
+    from repro_torch.core.programs import launch_fft_qrd, mixed_device
+
+    rng = np.random.default_rng(21)
+    xs = (rng.standard_normal((8, 64))
+          + 1j * rng.standard_normal((8, 64))).astype(np.complex64)
+    As = rng.standard_normal((4, 16, 16)).astype(np.float32)
+
+    def run():
+        return launch_fft_qrd(xs, As, device=mixed_device(64, n_sms=4))[3]
+
+    monkeypatch.setattr(compile_cache, "_resolved", True)
+    monkeypatch.setattr(compile_cache, "_active", None)
+    _fresh_lowering()
+    fresh = run()                                   # no cache: lowered
+    compile_cache.configure(str(tmp_path / "cache"))
+    _fresh_lowering()
+    run()                                           # lowered and stored
+    _fresh_lowering()
+    build.reset_launches()
+    loaded = run()                                  # every plan from disk
+    torch.cuda.synchronize()
+    s = compile_cache.stats()
+    monkeypatch.setattr(compile_cache, "_active", None)
+    _fresh_lowering()
+    assert s["errors"] == 0 and s["by_kind"]["megakernel"]["hits"] == 2, s
+    assert loaded.engine == "megakernel" and build.launches["segment"] > 0
+    for k in ("regs", "shmem", "gmem", "oob"):
+        assert torch.equal(getattr(loaded, k), getattr(fresh, k)), k
+    assert loaded.profile() == fresh.profile()
+
+
+@pytest.mark.cuda
+def test_entry_written_beside_the_card_loads_on_the_host_alone(
+        dev, tmp_path, monkeypatch):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core import compile_cache, trace_engine
+    from repro_torch.core.programs.fft import fft_program
+
+    cfg = SMConfig(n_threads=32, dim_x=32, shmem_depth=192,
+                   max_steps=200_000)
+    monkeypatch.setattr(compile_cache, "_resolved", True)
+    monkeypatch.setattr(compile_cache, "_active", None)
+    compile_cache.configure(str(tmp_path / "cache"))
+    _fresh_lowering()
+    plan = trace_engine.compile_megakernel(fft_program(64), cfg)
+    plan.device_table(dev)                           # a card-resident table
+    plan.device_barriers(dev)
+    stats = compile_cache.stats()
+    monkeypatch.setattr(compile_cache, "_active", None)
+    _fresh_lowering()
+    assert stats["by_kind"]["megakernel"]["stores"] == 1
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import json\n"
+        "from repro_torch.core import compile_cache, trace_engine, SMConfig\n"
+        "from repro_torch.core.programs.fft import fft_program\n"
+        "plan = trace_engine.compile_megakernel(fft_program(64), SMConfig(\n"
+        "    n_threads=32, dim_x=32, shmem_depth=192, max_steps=200_000))\n"
+        "print(json.dumps([compile_cache.stats(), plan.stats()]))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src"),
+             "CUDA_VISIBLE_DEVICES": "",
+             "EGPU_CACHE_DIR": str(tmp_path / "cache")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    import json
+
+    got, plan_stats = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["misses"] == 0 and got["errors"] == 0, got
+    assert got["by_kind"]["megakernel"]["hits"] == 1
+    assert plan_stats == plan.stats()

@@ -4,7 +4,8 @@ turns, on one card.
 
     python3 tools/turns.py KERNEL ROOT_A ROOT_B [...]
 
-KERNEL is ``segment``, ``qrd``, ``gmem``, ``dot`` or ``paths``. It runs the roots in order
+KERNEL is ``segment``, ``qrd``, ``gmem``, ``dot``, ``paths`` or
+``coldstart``. It runs the roots in order
 and then in reverse (A, B, B, A for two), each turn one process on that
 checkout's ``src``: the process builds the checkout's kernels in its own
 ``build/`` and times the kernel at fixed shapes, each held ``==`` to its
@@ -54,6 +55,18 @@ name and power limit.
   ``chip_smoke.serve_run``), each held to its host run (a checkout
   without the fleet or the server records ``raises``). A fresh process
   per turn keeps what else ran before out of the times.
+
+- ``coldstart``: the first launch of the merged FFT-64 x 64 + QRD-16 x
+  16 grid (``chip_smoke.coldstart_child``: ``launch_fft_qrd`` on
+  ``mixed_device(64, n_sms=4)`` through "auto", the kernels' libraries and
+  the card's context loaded before the clock) in a fresh process with an
+  empty compile cache (``EGPU_CACHE_DIR``), then in another fresh process
+  with the cache the first one filled, ``COLDSTART_PAIRS`` such pairs a
+  turn: each run's ``first_ms`` and the cache's stats under ``cold`` and
+  ``warm``, and their medians; every launch must be equal by state and
+  profile. A checkout without the cache records its plain first launch
+  in both places (its stats ``null``), so its cold-to-warm difference is
+  what the order of the two processes alone gives.
 
     python3 tools/turns.py segment --rows ROOT
 
@@ -296,8 +309,37 @@ def paths(cs, root: Path) -> dict:
     return out
 
 
+COLDSTART_PAIRS = 3
+
+
+def coldstart(cs, root: Path) -> dict:
+    import tempfile
+
+    import numpy as np
+
+    (HERE / "build").mkdir(exist_ok=True)
+    out = {"cold": [], "warm": []}
+    first = None
+    for _ in range(COLDSTART_PAIRS):
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as d:
+            pair = cs.coldstart_pair(root, Path(d))
+        for run in pair:
+            first = first or run
+            for k, v in run["state"].items():
+                if not np.array_equal(v, first["state"][k]):
+                    raise AssertionError(f"coldstart: {k} differs")
+            if run["profile"] != first["profile"]:
+                raise AssertionError("coldstart: profile() differs")
+            out[run["turn"]].append(
+                {k: run[k] for k in ("first_ms", "engine", "stats")})
+    for turn in ("cold", "warm"):
+        out[f"{turn}_median_ms"] = float(np.median(
+            [r["first_ms"] for r in out[turn]]))
+    return out
+
+
 KERNELS = {"segment": segment, "qrd": qrd, "gmem": gmem, "dot": dot,
-           "paths": paths}
+           "paths": paths, "coldstart": coldstart}
 
 
 def one(kernel: str, root: Path, prefixes: bool = False) -> dict:
