@@ -108,9 +108,30 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      on one FFT-64 wave, and a whole ALU, LOD, STO, GLD and
      GST handler call beside the per-op composition of the same row, in
      turns;
-  6. prints the barriers the FFT-64 and QRD-16 plans place in their
-     segments, the ``kernels`` JSON line, the device line and, last, the
-     ``{"ok": true, ...}`` line.
+  6. lm-serve, the LM stack's serving path (plain PyTorch: it launches
+     none of the ten kernels), float32 with TF32 off: (a) the smoke
+     configs of granite-3-2b, deepseek-moe-16b, mamba2-780m and
+     recurrentgemma-2b served by the slot decode ``Engine`` through the
+     launcher's ``build_engine``/``drive`` (8 requests, 4 slots, capacity
+     128) on the card and on the host with the same weights: equal token
+     streams, finish reasons and active widths, prefill logits within
+     ``LM_ATOL``; (b) internvl2-76b and whisper-tiny (smoke), which the
+     Engine cannot serve, model to model: a prefill and 4 decode steps,
+     card against host; (c) every family at its published width
+     (``LM_PUBLISHED``): mamba2-780m, recurrentgemma-2b and whisper-tiny
+     whole, deepseek-moe-16b, internvl2-76b and Yi-6B cut in depth; the
+     card's prefill and decode steps against its own full forward, and
+     at a cut depth a prefill and 4 decode steps against the host; then
+     mamba2-780m and recurrentgemma-2b whole through the Engine; (d) Yi-6B
+     at full depth through the launcher's entry points (weights drawn on
+     the card): a warm-up drive, a drive alone for tokens/s, a drive
+     with each decode step's and prefill's wall time, one 4-slot step's
+     event, card-alone and profiled kernel time beside its byte bound,
+     the peak device memory and the card, printed as the ``lm_serve``
+     line;
+  7. prints the barriers the FFT-64 and QRD-16 plans place in their
+     segments, the ``kernels`` JSON line, the ``lm_serve`` line, the
+     device line and, last, the ``{"ok": true, ...}`` line.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
@@ -1108,11 +1129,12 @@ def composed_handler(cfg, row):
     return {1: h_alu, 2: h_lod, 3: h_sto, 8: h_gld, 9: h_gst}[row.sel]
 
 
-def issue_counts(fn) -> dict:
+def issue_counts(fn, top: int = 6) -> dict:
     """What one call of ``fn`` issues, after a warm-up call: the kernels
     our wrappers launched (their counts), the PyTorch operations
-    dispatched (a TorchDispatchMode), and the CUDA kernels and the
-    device memory copies and sets the profiler saw."""
+    dispatched (a TorchDispatchMode), the CUDA kernels and the device
+    memory copies and sets the profiler saw, the kernels' summed time on
+    the card, and the ``top`` kernels by that time (name, count, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1136,12 +1158,22 @@ def issue_counts(fn) -> dict:
         with ops:
             fn()
         torch.cuda.synchronize()
-    on_card = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-    copies = sum(n.startswith(("Memcpy", "Memset")) for n in on_card)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0, 0.0])
+            t[0] += 1
+            t[1] += (e.time_range.end - e.time_range.start) / 1e3
+    n_card = sum(n for n, _ in by_name.values())
+    copies = sum(n for name, (n, _) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return dict(wrapper_launches=sum(build.launches.values()) - before,
                 torch_ops=len(ops.names), ops=sorted(set(ops.names)),
-                cuda_kernels=len(on_card) - copies, device_copies=copies)
+                cuda_kernels=n_card - copies, device_copies=copies,
+                kernel_ms=sum(ms for _, ms in by_name.values()),
+                top_kernels=[[name[:80], n, ms]
+                             for name, (n, ms) in ranked[:top]])
 
 
 def row_issue(engine: str) -> dict:
@@ -2600,6 +2632,373 @@ def run_examples() -> dict[str, float]:
     return walls
 
 
+# ---------------------------------------------------------------------------
+# lm-serve: the LM stack's serving path (configs, models, the slot decode
+# Engine, launch.serve); plain PyTorch, none of the ten kernels
+# ---------------------------------------------------------------------------
+
+# the smoke configs the Engine serves, one per family, and the two it
+# cannot (their prefill needs image embeddings or audio frames)
+LM_ENGINE_ARCHS = ("granite-3-2b", "deepseek-moe-16b", "mamba2-780m",
+                   "recurrentgemma-2b")
+LM_MODEL_ARCHS = ("internvl2-76b", "whisper-tiny")
+# float32 logits, the card against the host and a decode against its own
+# full forward (TF32 off: the two differ in summation order only)
+LM_ATOL = 1e-4
+
+
+def host_copy(model):
+    """The same model with its weights copied to the host."""
+    import copy
+
+    return copy.deepcopy(model).to("cpu")
+
+
+def lm_close(name: str, got, want, atol: float = LM_ATOL) -> float:
+    """Assert ``got`` (on the card) within ``atol`` of ``want``; return the
+    largest difference."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"{name}: logits differ by {err} > {atol}")
+    return err
+
+
+def lm_batch(cfg, rng, dev, B: int = 2, S: int = 8) -> dict:
+    import torch
+
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).to(dev)}
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model))).astype(np.float32)).to(dev)
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.num_image_tokens, cfg.d_model))).astype(
+                np.float32)).to(dev)
+    return out
+
+
+def lm_engines(name: str) -> dict:
+    """(a) ``name``'s smoke config served by the Engine on the card and on
+    the host with the same weights, the launcher's trace (8 requests, 4
+    slots, capacity 128, 4-16 prompt tokens): equal token streams, finish
+    reasons and active widths, and each request's prefill logits within
+    ``LM_ATOL``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    cfg = get_arch(name, smoke=True)
+    card = serve.build_engine(cfg, device="cuda")
+    host = Engine(host_copy(card.model), max_slots=4, capacity=128)
+    line = serve.drive(card, cfg)
+    serve.drive(host, cfg)
+    for rid, req in host.requests.items():
+        got = card.requests[rid]
+        if (got.out, got.finish_reason) != (req.out, req.finish_reason):
+            raise AssertionError(f"{name}: request {rid} {got.out} "
+                                 f"{got.finish_reason} on the card, "
+                                 f"{req.out} {req.finish_reason} on the "
+                                 "host")
+    if card.active_history != host.active_history:
+        raise AssertionError(f"{name}: active widths differ")
+    err = 0.0
+    with torch.inference_mode():
+        for req in host.requests.values():
+            toks = torch.from_numpy(np.asarray(req.prompt)[None])
+            want, _ = host.model.prefill({"tokens": toks})
+            got, _ = card.model.prefill({"tokens": toks.cuda()})
+            err = max(err, lm_close(f"{name} prefill", got, want))
+    return {"tokens": line["tokens"], "decode_steps": line["decode_steps"],
+            "finish_reasons": sorted(set(card.finish_reasons().values())),
+            "prefill_max_abs_err": err}
+
+
+def grow_caches(caches: dict, n: int) -> dict:
+    """A prefill's caches with room for ``n`` decode rows: every
+    self-attention ``KVCache`` padded at the end of its row axis (the
+    third from last). Recurrent states and Whisper's cross-attention
+    cache keep their shapes."""
+    import torch
+    from repro_torch.models.attention import KVCache
+
+    def pad(c):
+        if not isinstance(c, KVCache):
+            return c
+        return KVCache(*(torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n))
+                         for x in c))
+
+    out = dict(caches)
+    for key in ("kv", "kv0"):
+        if key in out:
+            out[key] = pad(out[key])
+    if "dec" in out:
+        out["dec"] = (pad(out["dec"][0]), out["dec"][1])
+    if "groups" in out:
+        out["groups"] = {k: pad(c) for k, c in out["groups"].items()}
+        out["tail"] = [pad(c) for c in out["tail"]]
+    return out
+
+
+def lm_decode(model, batch: dict, P: int, D: int):
+    """Prefill ``model`` with ``batch``'s first ``P`` tokens, then decode
+    its next ``D`` one at a time: (prefill logits, decode logits (B, D,
+    V)), on the model's device."""
+    import torch
+
+    b = {k: v.to(model.device) for k, v in batch.items()}
+    toks = b["tokens"]
+    logits, caches = model.prefill({**b, "tokens": toks[:, :P]})
+    caches = grow_caches(caches, D)
+    steps = []
+    for t in range(P, P + D):
+        lg, caches = model.decode_step(caches, toks[:, t:t + 1])
+        steps.append(lg[:, 0])
+    out = (logits, torch.stack(steps, 1))
+    for x in out:
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{model.cfg.name}: non-finite logits")
+    return out
+
+
+def lm_model_steps(name: str, rng, steps: int = 4) -> dict:
+    """(b) ``name``'s smoke model (which the Engine cannot serve) model to
+    model: a prefill of 8 tokens and ``steps`` decode steps on the card
+    against the host, logits within ``LM_ATOL``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(name, smoke=True)
+    card = build_model(cfg, device="cuda").requires_grad_(False)
+    host = host_copy(card)
+    batch = lm_batch(cfg, rng, "cuda", S=8 + steps)
+    with torch.inference_mode():
+        got = lm_decode(card, batch, 8, steps)
+        want = lm_decode(host, batch, 8, steps)
+    return {"steps": steps, "max_abs_err": max(
+        lm_close(f"{name} {what}", g, w)
+        for what, g, w in zip(("prefill", "decode"), got, want))}
+
+
+# (c) each family at its published width: arch -> (depth on the card, depth
+# held against the host (None: the published one), prompt tokens P, decode
+# steps D, tokens of the card's full forward). Those that fit the card
+# whole in float32 run whole there; deepseek-moe-16b (65.6 GB whole),
+# internvl2-76b (~300 GB) and Yi-6B (whose whole run is (d)) are cut in
+# depth. mamba2-780m's prompt is one SSD chunk (256) and its forward two,
+# so the chunked scan carries a state across chunks.
+LM_PUBLISHED = {
+    "yi-6b": (2, 2, 16, 16, 32),
+    "deepseek-moe-16b": (3, 3, 16, 16, 32),
+    "internvl2-76b": (2, 2, 16, 16, 32),
+    "mamba2-780m": (None, 2, 256, 16, 512),
+    "recurrentgemma-2b": (None, 3, 16, 16, 32),
+    "whisper-tiny": (None, None, 16, 16, 32),
+}
+# decode steps held against the host after its prefill
+LM_HOST_STEPS = 4
+
+
+def lm_published(name: str, rng) -> dict:
+    """(c) ``name`` at its published width (``LM_PUBLISHED``): on the
+    card, the prefill's and the decode steps' logits against the card's
+    own full forward (the reference's decode-matches-full-forward check,
+    a MoE dropless there as in the reference's test); then, at the host
+    depth, the prefill and ``LM_HOST_STEPS`` decode steps on the card
+    against the host with the same weights. Logits within ``LM_ATOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    depth, host_depth, P, D, S = LM_PUBLISHED[name]
+    cfg = get_arch(name)
+
+    def at(n_layers):
+        return cfg if n_layers is None else dataclasses.replace(
+            cfg, n_layers=n_layers)
+
+    card = build_model(at(depth), device="cuda").requires_grad_(False)
+    n_params = sum(p.numel() for p in card.parameters())
+    batch = lm_batch(cfg, rng, "cuda", S=S)
+    errs = {}
+    with torch.inference_mode():
+        if cfg.n_experts:
+            # capacity drops depend on the batch's token count, so the
+            # forward and the decode agree only without them
+            card.cfg = dataclasses.replace(
+                card.cfg, capacity_factor=float(cfg.n_experts))
+        full = card.forward(batch)
+        pre, dec = lm_decode(card, batch, P, D)
+        card.cfg = at(depth)
+        off = full.shape[1] - S          # the image tokens before the text
+        errs["prefill_vs_forward"] = lm_close(
+            f"{name} prefill vs forward", pre, full[:, :off + P])
+        errs["decode_vs_forward"] = lm_close(
+            f"{name} decode vs forward", dec, full[:, off + P:off + P + D])
+        del full, pre, dec
+        if host_depth != depth:
+            del card
+            torch.cuda.empty_cache()
+            card = build_model(at(host_depth),
+                               device="cuda").requires_grad_(False)
+        host = host_copy(card)
+        got = lm_decode(card, batch, P, LM_HOST_STEPS)
+        want = lm_decode(host, batch, P, LM_HOST_STEPS)
+        errs["prefill"] = lm_close(f"{name} prefill", got[0], want[0])
+        errs["decode"] = lm_close(f"{name} decode", got[1], want[1])
+    del card, host, got, want
+    torch.cuda.empty_cache()
+    return {"n_layers": depth or cfg.n_layers,
+            "host_n_layers": host_depth or cfg.n_layers, "params": n_params,
+            "prompt": P, "decode_steps": D, "forward_tokens": S,
+            **{f"{k}_max_abs_err": v for k, v in errs.items()}}
+
+
+# the families the Engine serves whose published model fits the card whole
+LM_ENGINE_PUBLISHED = ("mamba2-780m", "recurrentgemma-2b")
+
+
+def lm_engine_published(name: str, smoke: dict) -> dict:
+    """``name`` at its published config, whole, served by the Engine on
+    the card through the launcher's ``build_engine``/``drive``: every
+    request ends on its budget, and the trace's counts equal its smoke
+    run's (``smoke``, from (a)): they depend on the trace alone."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    cfg = get_arch(name)
+    eng = serve.build_engine(cfg, device="cuda")
+    t = time.perf_counter()
+    line = serve.drive(eng, cfg)
+    wall = time.perf_counter() - t
+    got = {k: line[k] for k in ("tokens", "decode_steps")}
+    want = {k: smoke[k] for k in ("tokens", "decode_steps")}
+    reasons = sorted(set(eng.finish_reasons().values()))
+    if got != want or reasons != ["budget"]:
+        raise AssertionError(f"{name}: {got} {reasons}, smoke {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return {**line, "wall_s": wall, "tok_per_s": line["tokens"] / wall}
+
+
+def decode_step_bytes(model, positions) -> int:
+    """The bytes one decode step of a dense LM at ``positions`` (one a
+    slot) must move: every weight once but the input embedding table, of
+    which each slot reads one row; each slot's cached K and V rows up to
+    its position read and the new one written; the logits written."""
+    cfg = model.cfg
+    size = lambda p: p.numel() * p.element_size()  # noqa: E731
+    table = model.embed.embedding
+    n = sum(size(p) for p in model.parameters())
+    if hasattr(model.embed, "unembed"):
+        n -= size(table) - len(positions) * size(table[0])
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
+    return (n + sum(int(p) + 1 for p in positions) * kv_row
+            + len(positions) * cfg.padded_vocab * 4)
+
+
+def lm_serve_full(card: str) -> dict:
+    """(d) Yi-6B at full depth and width in float32 through the launcher's
+    entry points on the card: 8 requests, 4 slots, capacity 128, max-new
+    16. A first drive warms up (its first-use costs stay out of the
+    numbers); a second, alone, gives the wall time and tokens/s (the 8
+    prefills included); a third times each decode step and each prefill
+    (host clock, the card synchronized after each). Then one 4-slot step
+    alone: CUDA events, the card alone, and what it issues, beside its
+    byte bound. Also the peak device memory and the card."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    cfg = get_arch("yi-6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serve.build_engine(cfg, slots=4, capacity=128, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = eng.model
+    serve.drive(eng, cfg)
+    eng = Engine(model, max_slots=4, capacity=128)
+    t0 = time.perf_counter()
+    line = serve.drive(eng, cfg)
+    wall = time.perf_counter() - t0
+    for req in eng.requests.values():
+        if not req.done or len(req.out) != req.max_new_tokens:
+            raise AssertionError(f"yi-6b: request {req.rid} ended "
+                                 f"{req.finish_reason} with {len(req.out)} "
+                                 f"of {req.max_new_tokens} tokens")
+    if line["requests"] != 8 or not line["decode_steps"]:
+        raise AssertionError(f"yi-6b: {line}")
+
+    eng = Engine(model, max_slots=4, capacity=128)
+    walls = {"_decode": [], "_prefill": []}
+
+    def timed(name):
+        fn = getattr(eng, name)
+
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    for name in walls:
+        setattr(eng, name, timed(name))
+    if serve.drive(eng, cfg)["tokens"] != line["tokens"]:
+        raise AssertionError("yi-6b: the timed drive emitted other tokens")
+    dec = np.asarray(walls["_decode"])
+    # one decode step of all four slots alone, at position 20
+    toks = torch.zeros((4, 1), dtype=torch.int32, device=eng.device)
+    pos = torch.full((4,), 20, dtype=torch.int32, device=eng.device)
+    with torch.inference_mode():
+        step = lambda: model.decode_step(eng.caches, toks, pos)  # noqa: E731
+        step_ms = {"event_ms": cuda_time_ms(step, 10),
+                   "device_ms": cuda_device_ms(step, 10),
+                   **issue_counts(step)}
+    step_ms.pop("ops")
+    step_bytes = decode_step_bytes(model, [20] * 4)
+    out = {**line, "wall_s": wall, "tok_per_s": line["tokens"] / wall,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+           "step": step_ms, "step_bytes": step_bytes,
+           "step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+           "build_s": build_s,
+           "decode_ms_median": float(np.median(dec)),
+           "decode_ms_min": float(dec.min()),
+           "decode_ms_max": float(dec.max()),
+           "prefill_ms_median": float(np.median(walls["_prefill"])),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "card": card}
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve(card: str) -> dict:
+    """The lm-serve phase, (a) to (d)."""
+    rng = np.random.default_rng(20261019)
+    out = {"engine": {n: lm_engines(n) for n in LM_ENGINE_ARCHS},
+           "model_to_model": {n: lm_model_steps(n, rng)
+                              for n in LM_MODEL_ARCHS},
+           "published": {n: lm_published(n, rng) for n in LM_PUBLISHED}}
+    out["engine_published"] = {
+        n: lm_engine_published(n, out["engine"][n])
+        for n in LM_ENGINE_PUBLISHED}
+    for k, v in out.items():
+        print(f"lm-serve {k}: {json.dumps(v)}", flush=True)
+    out["yi-6b"] = lm_serve_full(card)
+    return out
+
+
 def with_segment_rows(fn):
     """``fn()`` and the fused-segment rows run meanwhile: the card's
     ``cuda`` backend runs raw rows, the host's folding backends the plan's
@@ -2677,6 +3076,7 @@ def main() -> int:
     n_golden = phases.run("golden-cycles", golden_shapes)
     timing = phases.run("timing", lambda: with_bounds({
         **time_kernels(rng, dev), **time_kernel_layer(rng, dev)}))
+    lm = phases.run("lm-serve", lambda: lm_serve(card))
     barriers = barrier_counts()
     for name, c in barriers.items():
         print(f"segment barriers per {name} wave: {c['total']} "
@@ -2725,6 +3125,7 @@ def main() -> int:
         "library_ms": timing[k].get("library_ms"),
     } for k in SOURCES]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"lm_serve": lm["yi-6b"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

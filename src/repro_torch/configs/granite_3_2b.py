@@ -1,0 +1,16 @@
+"""granite-3-2b: GQA dense LM [hf:ibm-granite/granite-3.0-2b-base].
+40L d=2048 32H GQA kv=8 d_ff=8192 vocab 49155 (padded 49408)."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=49_155,
+    head_dim=64,
+    tie_embeddings=True,
+)

@@ -1,0 +1,16 @@
+"""qwen2.5-32b: GQA dense LM with QKV bias [hf:Qwen/Qwen2.5 family].
+64L d=5120 40H GQA kv=8 d_ff=27648 vocab 152064."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27_648,
+    vocab_size=152_064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

@@ -1,0 +1,15 @@
+"""yi-6b: llama-architecture GQA dense LM [arXiv:2403.04652; hf].
+32L d=4096 32H GQA kv=4 d_ff=11008 vocab 64000."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11_008,
+    vocab_size=64_000,
+    rope_theta=5_000_000.0,
+)

@@ -82,3 +82,96 @@ def machine_state_to_numpy(state: MachineState) -> dict[str, np.ndarray]:
         out[k] = np.asarray(getattr(state, k)).astype(
             bool if k == "halted" else np.int64)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the LM stack: parameter trees and decode caches
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _leaves(tree, prefix: str):
+    """(dotted name, array) over a nested dict/list of arrays."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def _stacked(tree, prefix: str, n: int, first: int = 0, stride: int = 1):
+    """The leaves of a tree whose arrays carry a leading layer axis of ``n``,
+    as the names of layers ``first, first + stride, ...`` of a
+    ``ModuleList`` called ``prefix``."""
+    for name, a in _leaves(tree, ""):
+        for layer in range(n):
+            yield f"{prefix}.{first + layer * stride}.{name}", np.asarray(a)[layer]
+
+
+def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cpu"
+                         ) -> dict[str, torch.Tensor]:
+    """The reference's parameter tree for ``cfg`` (numpy arrays, blocks
+    stacked on a leading layer axis as its vmapped init makes them) as a
+    ``state_dict`` of the port's ``LM``/``EncDec`` on ``device``: a copy,
+    leaf for leaf (the weights keep their ``(d_in, d_out)`` layout)."""
+    named = []
+    if cfg.family == "audio":
+        named += _stacked(tree["enc_blocks"], "enc_blocks", cfg.encoder_layers)
+        named += _stacked(tree["dec_blocks"], "dec_blocks", cfg.n_layers)
+        rest = ("embed", "ln_enc", "ln_dec")
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_groups = cfg.n_layers // len(pat)
+        for i, kind in enumerate(pat):
+            named += _stacked(tree["groups"][f"{i}_{kind}"], "blocks",
+                              n_groups, first=i, stride=len(pat))
+        named += _leaves({str(n_groups * len(pat) + j): t
+                          for j, t in enumerate(tree["tail"])}, "blocks")
+        rest = ("embed", "ln_f")
+    else:
+        named += _stacked(tree["blocks"], "blocks",
+                          cfg.n_layers - int(cfg.first_layer_dense))
+        rest = ("embed", "ln_f", "block0", "img_proj")
+    for key in rest:
+        if key in tree:
+            named += _leaves(tree[key], key)
+    return {name: _tensor(a, device) for name, a in named}
+
+
+def lm_caches_from_numpy(tree, device: torch.device | str = "cpu"):
+    """The reference's decode caches (numpy leaves, its nesting and keys,
+    its named ``(k, v)`` tuples) as the port's: tensors on ``device``,
+    ``pos`` as an int (or a tensor if it is a vector)."""
+    from .models.attention import KVCache
+
+    if isinstance(tree, dict):
+        return {k: lm_caches_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [lm_caches_from_numpy(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        xs = [lm_caches_from_numpy(v, device) for v in tree]
+        return KVCache(*xs) if getattr(tree, "_fields", None) == ("k", "v") \
+            else tuple(xs)
+    a = np.asarray(tree)
+    return int(a) if a.ndim == 0 else _tensor(a, device)
+
+
+def lm_caches_to_numpy(caches):
+    """The port's decode caches with numpy leaves, the nesting, keys and
+    ``(k, v)`` tuples kept; ``pos`` as int32."""
+    if isinstance(caches, dict):
+        return {k: lm_caches_to_numpy(v) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [lm_caches_to_numpy(v) for v in caches]
+    if isinstance(caches, tuple):
+        xs = [lm_caches_to_numpy(v) for v in caches]
+        return type(caches)(*xs) if hasattr(caches, "_fields") else tuple(xs)
+    if isinstance(caches, torch.Tensor):
+        return caches.detach().cpu().numpy()
+    return np.int32(caches)

@@ -1,10 +1,13 @@
-"""Serving: the device-level front door.
+"""Serving: continuous batching at two levels.
 
-``LaunchServer``/``LaunchRequest``: asynchronous kernel-launch admission,
+``Engine``/``Request``: the slot-based LM decode engine (flexible active
+mask over a fixed-capacity batch). ``LaunchServer``/``LaunchRequest``:
+the device-level front door — asynchronous kernel-launch admission,
 priority-aware continuous batching into merged heterogeneous waves, and
 the launch-queue/dispatch-latency cycle model (``core.device.launch``'s
 ``queue_depth=``).
 """
+from .engine import FINISH_REASONS, Engine, Request
 from .launch_server import (
     ADMISSIONS,
     LaunchRequest,
@@ -13,5 +16,8 @@ from .launch_server import (
     ServeResult,
 )
 
-__all__ = ["LaunchServer", "LaunchRequest", "ServeResult", "QueueFull",
-           "ADMISSIONS"]
+__all__ = [
+    "Engine", "Request", "FINISH_REASONS",
+    "LaunchServer", "LaunchRequest", "ServeResult", "QueueFull",
+    "ADMISSIONS",
+]

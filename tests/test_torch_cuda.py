@@ -1037,3 +1037,38 @@ def test_entry_written_beside_the_card_loads_on_the_host_alone(
     assert got["misses"] == 0 and got["errors"] == 0, got
     assert got["by_kind"]["megakernel"]["hits"] == 1
     assert plan_stats == plan.stats()
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_build_model_puts_its_weights_on_the_card(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("granite-3-2b", smoke=True))
+    assert {p.device.type for p in model.parameters()} == {"cuda"}
+    assert model.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-3-2b", "recurrentgemma-2b"])
+def test_smoke_engine_on_the_card_equals_the_host(dev, name):
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    cfg = get_arch(name, smoke=True)
+    card = serve.build_engine(cfg, device="cuda")
+    host = Engine(copy.deepcopy(card.model).to("cpu"), max_slots=4,
+                  capacity=128)
+    line = serve.drive(card, cfg)
+    assert serve.drive(host, cfg)["tokens"] == line["tokens"]
+    assert {r: q.out for r, q in card.requests.items()} == \
+        {r: q.out for r, q in host.requests.items()}
+    assert card.finish_reasons() == host.finish_reasons()
+    assert card.active_history == host.active_history
