@@ -129,9 +129,32 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      event, card-alone and profiled kernel time beside its byte bound,
      the peak device memory and the card, printed as the ``lm_serve``
      line;
-  7. prints the barriers the FFT-64 and QRD-16 plans place in their
-     segments, the ``kernels`` JSON line, the ``lm_serve`` line, the
-     device line and, last, the ``{"ok": true, ...}`` line.
+  7. lm-train, the LM stack's training path (plain PyTorch, float32, TF32
+     off; none of the ten kernels): (a) one train step of the smoke config
+     of each family (three for granite-3-2b) on the card and on the host
+     with the same weights, loss, gradient norm and every weight after
+     each step held together (``TRAIN_*`` bars), and one step run twice
+     on the card (weights, moments, loss and gradient norm equal bit for
+     bit); (b) the reference's crash test on
+     the card (granite-3-2b smoke, 10 steps, checkpoints every 4 written
+     asynchronously, a run that dies at step 7 resumes from step 4): its
+     losses, weights and moments equal the uninterrupted run's bit for
+     bit; a checkpoint written from the card restores on the host and one
+     from the host on the card; (c) every family at its published width
+     (``LM_TRAIN_PUBLISHED``): one step run twice on the card at 1024
+     tokens or more (mamba2-780m, recurrentgemma-2b and whisper-tiny
+     whole, granite-3-2b, deepseek-moe-16b and internvl2-76b cut in
+     depth), equal bit for bit, and one step against the host at a cut
+     depth (whisper-tiny whole); (d) granite-3-2b whole (2.53e9 parameters) through
+     ``launch.train`` for 6 steps at batch 8 x 128: per-step wall times
+     from its log, tokens/s, losses, peak device memory, a warm step
+     timed and profiled, the peak memory of backward and of the optimizer
+     apart, the optimizer timed, beside the step's bound; printed as the
+     ``lm_train`` line;
+  8. prints the barriers the FFT-64 and QRD-16 plans place in their
+     segments, the ``kernels`` JSON line, the ``lm_serve`` and
+     ``lm_train`` lines, the device line and, last, the
+     ``{"ok": true, ...}`` line.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
@@ -2999,6 +3022,420 @@ def lm_serve(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm-train: the LM stack's training path (optim, data, the train step and
+# loop, checkpoints, launch.train); plain PyTorch, none of the ten kernels
+# ---------------------------------------------------------------------------
+
+# one smoke config per family; granite-3-2b takes three steps, the rest one
+LM_TRAIN_ARCHS = {"granite-3-2b": 3, "deepseek-moe-16b": 1, "mamba2-780m": 1,
+                  "recurrentgemma-2b": 1, "whisper-tiny": 1,
+                  "internvl2-76b": 1}
+# The card against the host, with the bars of the CPU tests against the
+# reference (tests/test_torch_lm_train_parity.py): loss within 1e-5, the
+# gradient norm within 1e-5 of itself. A step moves a weight by lr times
+# (g / (|g| + 1e-8) + wd * w): where |g| is at the two devices' float32
+# noise the signs of g may differ and the weight by up to 2 lr a step;
+# that may happen to a few weights (at most TRAIN_FLIP_SHARE of them), the
+# rest agree within TRAIN_P_ATOL a step.
+TRAIN_LR = 1e-3
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_NORM_RTOL = 1e-5
+TRAIN_P_ATOL = 1e-6
+TRAIN_FLIP_SHARE = 1e-3
+
+
+def train_rc():
+    from repro_torch.configs import RunConfig
+
+    return RunConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     weight_decay=0.1)
+
+
+def train_batches(cfg, steps: int, B: int, S: int, seed: int = 0) -> list:
+    """``steps`` pipeline batches of ``B`` x ``S`` on the host (a VLM's
+    ``S`` holds its image tokens, as ``spec_for`` has it)."""
+    from repro_torch.data import make_batch, spec_for
+
+    spec = spec_for(cfg, None, seed, batch=B, seq=S)
+    return [make_batch(cfg, spec, k, device="cpu") for k in range(steps)]
+
+
+def train_against_host(name: str, card_model, batches: list, rc) -> dict:
+    """The same steps of ``card_model`` and of its copy on the host, held
+    together after each step (loss, gradient norm, every parameter)."""
+    import torch
+    from repro_torch.train import init_state, make_train_step
+
+    host_model = host_copy(card_model)
+    runs = {d: (m, init_state(m, rc), make_train_step(m, rc))
+            for d, m in (("cuda", card_model), ("cpu", host_model))}
+    out = {"loss_max_abs_err": 0.0, "grad_norm_max_rel_err": 0.0,
+           "param_max_abs_err": 0.0, "param_beyond_share": 0.0}
+    for k, b in enumerate(batches, 1):
+        metrics = {}
+        for dev, (m, state, step) in runs.items():
+            state, metrics[dev] = step(state, {key: v.to(dev)
+                                               for key, v in b.items()})
+            runs[dev] = (m, state, step)
+        loss_err = abs(float(metrics["cuda"]["loss"])
+                       - float(metrics["cpu"]["loss"]))
+        norm = float(metrics["cpu"]["grad_norm"])
+        norm_err = abs(float(metrics["cuda"]["grad_norm"]) - norm) / norm
+        if not (loss_err <= TRAIN_LOSS_ATOL and norm_err <= TRAIN_NORM_RTOL):
+            raise AssertionError(f"{name} step {k}: loss differs by "
+                                 f"{loss_err}, grad norm by {norm_err}")
+        card_p, host_p = runs["cuda"][1].params, runs["cpu"][1].params
+        worst, beyond, n = 0.0, 0, 0
+        for key, hp in host_p.items():
+            diff = (card_p[key].detach().cpu() - hp.detach()).abs()
+            worst = max(worst, float(diff.max()))
+            beyond += int((diff > TRAIN_P_ATOL * k).sum())
+            n += diff.numel()
+        if not (worst <= k * (2 * rc.learning_rate + TRAIN_P_ATOL)
+                and beyond <= TRAIN_FLIP_SHARE * n):
+            raise AssertionError(f"{name} step {k}: weights differ by up to "
+                                 f"{worst}, {beyond} of {n} beyond "
+                                 f"{TRAIN_P_ATOL * k}")
+        out["loss_max_abs_err"] = max(out["loss_max_abs_err"], loss_err)
+        out["grad_norm_max_rel_err"] = max(out["grad_norm_max_rel_err"],
+                                           norm_err)
+        out["param_max_abs_err"] = max(out["param_max_abs_err"], worst)
+        out["param_beyond_share"] = max(out["param_beyond_share"],
+                                        beyond / n)
+    out.update(steps=len(batches), loss=float(metrics["cuda"]["loss"]))
+    del runs, host_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_bits(name: str, got: dict, want: dict) -> None:
+    """Assert two dicts of tensors are equal bit for bit, dtype and all."""
+    import torch
+
+    for key, w in want.items():
+        g = got[key]
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{name}: {key} differs")
+
+
+def step_twice_on_card(name: str, cfg, batch: dict, rc) -> None:
+    """One train step of ``cfg``'s model (its seed's weights) on the card,
+    run twice from the same weights on ``batch``: the loss, the gradient
+    norm, the weights and both moments after it must be equal bit for bit
+    (the loop's resume contract needs it). The first run's are kept on the
+    host while the second runs."""
+    import gc
+
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_train_step
+
+    runs = []
+    for _ in range(2):
+        model = build_model(cfg, device="cuda")
+        state, m = make_train_step(model, rc)(
+            init_state(model, rc), {k: v.cuda() for k, v in batch.items()})
+        run = {"loss": m["loss"], "grad_norm": m["grad_norm"]}
+        for what, tree in (("params", state.params), ("mu", state.opt.mu),
+                           ("nu", state.opt.nu)):
+            run.update({f"{what} {k}": t.detach() for k, t in tree.items()})
+        if not runs:
+            run = {k: t.cpu() for k, t in run.items()}
+        runs.append(run)
+        del model, state, m, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_bits(f"{name} twice on the card", runs[1], runs[0])
+    del runs
+    torch.cuda.empty_cache()
+
+
+def lm_train_smoke(name: str, steps: int) -> dict:
+    """(a) ``name``'s smoke config: ``steps`` train steps on the card and
+    on the host with the same weights (batch 2 x 32); and one step run
+    twice on the card from the same weights, equal bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(name, smoke=True)
+    rc = train_rc()
+    batches = train_batches(cfg, steps, 2, 32)
+    out = train_against_host(name, build_model(cfg, device="cuda"),
+                             batches, rc)
+    step_twice_on_card(name, cfg, batches[0], rc)
+    return {**out, "repeat_bit_equal": True}
+
+
+def lm_train_restart() -> dict:
+    """(b) the reference's crash test on the card at granite-3-2b smoke:
+    10 steps with checkpoints every 4 written asynchronously; a second run
+    dies at step 7 and resumes from step 4 with the model it crashed with;
+    its losses and final weights and moments must equal the first run's
+    bit for bit. Then a checkpoint written from the card restores on the
+    host, and one written from the host on the card, leaves equal."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import PipelineSpec
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, train_loop
+
+    cfg = get_arch("granite-3-2b", smoke=True)
+    root = ROOT / "build" / "lm_train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def setup(sub: str, dev: str = "cuda"):
+        model = build_model(cfg, device=dev, seed=1)
+        rc = RunConfig(learning_rate=3e-3, warmup_steps=2,
+                       ckpt_dir=str(root / sub), ckpt_every=4,
+                       async_ckpt=True, seed=1)
+        spec = PipelineSpec(vocab=cfg.vocab_size, seq_len=32,
+                            global_batch=4, seed=1)
+        return model, rc, spec
+
+    model, rc, spec = setup("a")
+    ref = train_loop(model, cfg, rc, spec, n_steps=10)
+    model2, rc2, spec2 = setup("b")
+    try:
+        train_loop(model2, cfg, rc2, spec2, n_steps=10, fail_at_step=7)
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        if "injected failure at step 7" not in str(e):
+            raise
+    res = train_loop(model2, cfg, rc2, spec2, n_steps=10)
+    if res.resumed_from != 4 or res.losses != ref.losses[4:]:
+        raise AssertionError(f"resumed from {res.resumed_from}: losses "
+                             f"{res.losses} against {ref.losses[4:]}")
+    for what in ("params", "mu", "nu"):
+        pick = (lambda s: s.params) if what == "params" else (
+            lambda s, w=what: getattr(s.opt, w))
+        same_bits(f"resumed run's {what}", pick(res.state), pick(ref.state))
+
+    # card -> host and host -> card
+    ckpt.save(str(root / "c"), 10, ref.state, {"step": 10})
+    host_model, host_rc, _ = setup("d", "cpu")
+    got, _ = ckpt.restore(str(root / "c"), init_state(host_model, host_rc))
+    if {t.device.type for t in got.params.values()} != {"cpu"}:
+        raise AssertionError("a card checkpoint restored off the host")
+    same_bits("card checkpoint on the host", got.params, ref.state.params)
+    same_bits("card checkpoint on the host: mu", got.opt.mu,
+              ref.state.opt.mu)
+    host = train_loop(host_model, cfg, host_rc, spec, n_steps=4)
+    back, _ = ckpt.restore(host_rc.ckpt_dir, init_state(
+        build_model(cfg, device="cuda", seed=1), host_rc))
+    if {t.device.type for t in back.params.values()} != {"cuda"}:
+        raise AssertionError("a host checkpoint restored off the card")
+    same_bits("host checkpoint on the card", back.params, host.state.params)
+    same_bits("host checkpoint on the card: nu", back.opt.nu,
+              host.state.opt.nu)
+    del model, model2, ref, res, got, back
+    torch.cuda.empty_cache()
+    return {"steps": 10, "resumed_from": 4, "resumed_bit_equal": True,
+            "checkpoints_crossed": ["card -> host", "host -> card"]}
+
+
+# (c) every family at its published width: arch -> (depth held against the
+# host, depth of the card's repeated step; None: the published one), the
+# host's batch B x S, the card's (1024 tokens or more: a MoE's 64 experts
+# then take many tokens each). The host's depth is cut so that its float32
+# step (16 bytes a parameter of weights, gradients and moments) stays
+# within the host's cores and memory. The card repeats the step whole where
+# the training state leaves room for the activations (mamba2-780m 12.5 GB,
+# recurrentgemma-2b 43 GB, whisper-tiny 0.6 GB), else cut in depth:
+# deepseek-moe-16b to its dense layer 0 and two 64-expert layers,
+# internvl2-76b to one layer (its 2.1e9 embedding and unembedding
+# parameters alone are 34 GB of state, a layer 13.7 GB more) and
+# granite-3-2b to 2 (its whole run is (d)). A VLM's S holds its 256 image
+# tokens; mamba2-780m's 512 are two SSD chunks.
+LM_TRAIN_PUBLISHED = {
+    "granite-3-2b": (2, 2, (2, 128), (8, 128)),
+    "deepseek-moe-16b": (3, 3, (2, 128), (8, 128)),
+    "internvl2-76b": (1, 1, (1, 384), (4, 384)),
+    "mamba2-780m": (2, None, (2, 512), (2, 512)),
+    "recurrentgemma-2b": (3, None, (2, 128), (8, 128)),
+    "whisper-tiny": (None, None, (2, 128), (8, 128)),
+}
+
+
+def lm_train_published(name: str) -> dict:
+    """(c) ``name`` at its published width (``LM_TRAIN_PUBLISHED``): one
+    step run twice on the card from the same weights, equal bit for bit;
+    then, at the host's depth, one step on the card against the host
+    (``TRAIN_*`` bars)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    host_depth, card_depth, (hb, hs), (cb, cs) = LM_TRAIN_PUBLISHED[name]
+    cfg = get_arch(name)
+
+    def at(n_layers):
+        return cfg if n_layers is None else dataclasses.replace(
+            cfg, n_layers=n_layers)
+
+    rc = train_rc()
+    t = time.perf_counter()
+    step_twice_on_card(name, at(card_depth),
+                       train_batches(cfg, 1, cb, cs)[0], rc)
+    model = build_model(at(host_depth), device="cuda")
+    n = sum(p.numel() for p in model.parameters())
+    out = train_against_host(f"{name} published", model,
+                             train_batches(cfg, 1, hb, hs), rc)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_layers": host_depth or cfg.n_layers, "params": n,
+            "batch": [hb, hs], **out,
+            "repeat_n_layers": card_depth or cfg.n_layers,
+            "repeat_batch": [cb, cs], "repeat_bit_equal": True,
+            "wall_s": time.perf_counter() - t}
+
+
+def is_product(kernel: str) -> bool:
+    """A matrix product's kernel (cuBLAS's and CUTLASS's names)."""
+    return "gemm" in kernel.lower() or "gemv" in kernel.lower()
+
+
+def lm_train_full(card: str, arch: str = "granite-3-2b", smoke: bool = False,
+                  steps: int = 6) -> dict:
+    """(d) ``arch`` whole through ``launch.train`` at the launcher's
+    defaults (batch 8 x 128, lr 1e-3, warmup 10) for ``steps`` steps, no
+    checkpoint, float32: the per-step wall times of its ``--log`` (step
+    0, which warms up, left out of the median and min), tokens/s, first
+    and last loss, the peak device memory; then one warm step timed
+    alone and profiled, the peak memory of a forward and backward alone
+    and of the optimizer (clip + AdamW, the step's decay set) alone, the
+    optimizer timed, and the step's bound: forward and backward FLOPs at the FP32 rate plus the
+    optimizer's bytes at the memory rate."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw, clip
+    from repro_torch.train import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    out_dir = ROOT / "build" / "lm_train_full"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    log = out_dir / "log.jsonl"
+    args = launch_train.parser().parse_args(
+        ["--arch", arch, *(["--smoke"] if smoke else []), "--steps",
+         str(steps), "--ckpt-every", "0", "--ckpt-dir", str(out_dir / "ckpt"),
+         "--log", str(log), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, rc, spec, res = launch_train.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    line = launch_train.report(cfg, res)
+    print(f"lm-train launch: {json.dumps(line)}", flush=True)
+    if line["steps"] != steps or line["resumed_from"] != 0 or not all(
+            np.isfinite([line["first_loss"], line["last_loss"]])):
+        raise AssertionError(f"launch.train: {line}")
+    dts = np.asarray([json.loads(x)["dt"] for x in
+                      log.read_text().splitlines()])
+    if len(dts) != steps:
+        raise AssertionError(f"launch.train logged {len(dts)} steps")
+    tokens = args.batch * args.seq
+    warm_s = dts[1:]
+
+    # one warm step alone, then profiled (issue_counts runs it twice)
+    state = [res.state]
+    step_fn = make_train_step(model, rc, args.steps)
+    batch = make_batch(cfg, spec, steps, device="cuda")
+
+    def one():
+        state[0], _ = step_fn(state[0], batch)
+
+    one()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    prof = issue_counts(one, top=10_000)
+    kernels = prof.pop("top_kernels")
+    products_ms = sum(ms for name, _, ms in kernels if is_product(name))
+    prof.pop("ops")
+
+    # the step's peak memory in its parts: a forward and backward from no
+    # gradients, then the optimizer alone (with the step's own decay set)
+    # on its gradients, timed
+    params = state[0].params
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak_backward = torch.cuda.max_memory_allocated()
+    grads = {k: p.grad for k, p in params.items()}
+    decay = convert.lm_decay(cfg, params)
+
+    def optimizer():
+        clip.clip_by_global_norm(grads, rc.grad_clip)
+        adamw.apply(rc, params, grads, state[0].opt, args.steps, decay=decay)
+
+    torch.cuda.reset_peak_memory_stats()
+    held_optimizer = torch.cuda.memory_allocated()
+    opt_ms = cuda_time_ms(optimizer, 3)
+    peak_optimizer = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.values())
+    flops = (6 * n_params * tokens + 12 * cfg.n_layers * args.batch
+             * args.seq ** 2 * cfg.n_heads * cfg.head_dim)
+    # the norm reads g; one fused pass reads p, g, m, v and writes p, m, v
+    opt_bytes = 32 * n_params
+    out = {
+        **line, "params": n_params, "batch": [args.batch, args.seq],
+        "tokens_per_step": tokens, "run_s": run_s,
+        "step_s_all": dts.tolist(),
+        "step_s_median": float(np.median(warm_s)),
+        "step_s_min": float(warm_s.min()),
+        "tokens_per_s": tokens / float(np.median(warm_s)),
+        "max_memory_allocated": peak, "memory_held_before": held,
+        "max_memory_forward_backward": peak_backward,
+        "memory_held_optimizer": held_optimizer,
+        "max_memory_optimizer": peak_optimizer,
+        "warm_step_ms": step_ms, "optimizer_ms": opt_ms,
+        "profile": {**prof, "products_ms": products_ms,
+                    "busy_share": prof["kernel_ms"] / step_ms,
+                    "top_kernels": kernels[:8]},
+        "flops": flops, "optimizer_bytes": opt_bytes,
+        "bound_ms": (flops / PEAK_FP32_OPS_PER_S
+                     + opt_bytes / PEAK_BYTES_PER_S) * 1e3,
+        "card": card}
+    for p in params.values():
+        p.grad = None
+    del model, res, state, grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(card: str) -> dict:
+    """The lm-train phase, (a) to (d)."""
+    out = {"smoke": {n: lm_train_smoke(n, k)
+                     for n, k in LM_TRAIN_ARCHS.items()},
+           "restart": lm_train_restart(),
+           "published": {n: lm_train_published(n)
+                         for n in LM_TRAIN_PUBLISHED}}
+    for k, v in out.items():
+        print(f"lm-train {k}: {json.dumps(v)}", flush=True)
+    out["granite-3-2b"] = lm_train_full(card)
+    return out
+
+
 def with_segment_rows(fn):
     """``fn()`` and the fused-segment rows run meanwhile: the card's
     ``cuda`` backend runs raw rows, the host's folding backends the plan's
@@ -3077,6 +3514,7 @@ def main() -> int:
     timing = phases.run("timing", lambda: with_bounds({
         **time_kernels(rng, dev), **time_kernel_layer(rng, dev)}))
     lm = phases.run("lm-serve", lambda: lm_serve(card))
+    lm_tr = phases.run("lm-train", lambda: lm_train(card))
     barriers = barrier_counts()
     for name, c in barriers.items():
         print(f"segment barriers per {name} wave: {c['total']} "
@@ -3126,6 +3564,7 @@ def main() -> int:
     } for k in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_serve": lm["yi-6b"]}))
+    print(json.dumps({"lm_train": lm_tr["granite-3-2b"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -105,13 +105,39 @@ def _leaves(tree, prefix: str):
         yield from _leaves(v, f"{prefix}.{k}" if prefix else str(k))
 
 
-def _stacked(tree, prefix: str, n: int, first: int = 0, stride: int = 1):
-    """The leaves of a tree whose arrays carry a leading layer axis of ``n``,
-    as the names of layers ``first, first + stride, ...`` of a
-    ``ModuleList`` called ``prefix``."""
-    for name, a in _leaves(tree, ""):
-        for layer in range(n):
-            yield f"{prefix}.{first + layer * stride}.{name}", np.asarray(a)[layer]
+def _lm_lists(cfg) -> list[tuple[str, str, list[int], bool]]:
+    """Where the port's per-layer ``ModuleList`` entries of ``cfg`` sit in
+    the reference's parameter tree: (the dotted path of a group of layers
+    there, the port's ``ModuleList``, its layers in the group's order,
+    whether the reference's vmapped init stacks the group on a leading
+    layer axis). Every other parameter has the same dotted name in both:
+    deepseek's ``block0``, the embeddings, the final norms, ``img_proj``.
+    This is the one mapping of names between the two trees."""
+    if cfg.family == "audio":
+        return [("enc_blocks", "enc_blocks", list(range(cfg.encoder_layers)),
+                 True),
+                ("dec_blocks", "dec_blocks", list(range(cfg.n_layers)), True)]
+    if cfg.family == "hybrid":
+        n_pat = len(cfg.block_pattern)
+        n_grouped = cfg.n_layers // n_pat * n_pat
+        return [(f"groups.{i}_{kind}", "blocks",
+                 list(range(i, n_grouped, n_pat)), True)
+                for i, kind in enumerate(cfg.block_pattern)] + [
+                (f"tail.{j}", "blocks", [n_grouped + j], False)
+                for j in range(cfg.n_layers - n_grouped)]
+    return [("blocks", "blocks",
+             list(range(cfg.n_layers - int(cfg.first_layer_dense))), True)]
+
+
+def _reference_place(cfg, name: str) -> tuple[str, int | None]:
+    """A port parameter's dotted path in the reference's tree, and its
+    index on the stacked layer axis there (None: not stacked)."""
+    for path, mod, layers, stacked in _lm_lists(cfg):
+        for i, layer in enumerate(layers):
+            head = f"{mod}.{layer}."
+            if name.startswith(head):
+                return f"{path}.{name[len(head):]}", i if stacked else None
+    return name, None
 
 
 def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cpu"
@@ -120,28 +146,50 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cpu"
     stacked on a leading layer axis as its vmapped init makes them) as a
     ``state_dict`` of the port's ``LM``/``EncDec`` on ``device``: a copy,
     leaf for leaf (the weights keep their ``(d_in, d_out)`` layout)."""
-    named = []
-    if cfg.family == "audio":
-        named += _stacked(tree["enc_blocks"], "enc_blocks", cfg.encoder_layers)
-        named += _stacked(tree["dec_blocks"], "dec_blocks", cfg.n_layers)
-        rest = ("embed", "ln_enc", "ln_dec")
-    elif cfg.family == "hybrid":
-        pat = cfg.block_pattern
-        n_groups = cfg.n_layers // len(pat)
-        for i, kind in enumerate(pat):
-            named += _stacked(tree["groups"][f"{i}_{kind}"], "blocks",
-                              n_groups, first=i, stride=len(pat))
-        named += _leaves({str(n_groups * len(pat) + j): t
-                          for j, t in enumerate(tree["tail"])}, "blocks")
-        rest = ("embed", "ln_f")
-    else:
-        named += _stacked(tree["blocks"], "blocks",
-                          cfg.n_layers - int(cfg.first_layer_dense))
-        rest = ("embed", "ln_f", "block0", "img_proj")
-    for key in rest:
-        if key in tree:
-            named += _leaves(tree[key], key)
-    return {name: _tensor(a, device) for name, a in named}
+    flat = dict(_leaves(tree, ""))
+    named = {}
+    for path, mod, layers, stacked in _lm_lists(cfg):
+        for key in [k for k in flat if k.startswith(path + ".")]:
+            a = np.asarray(flat.pop(key))
+            rest = key[len(path) + 1:]
+            for i, layer in enumerate(layers):
+                named[f"{mod}.{layer}.{rest}"] = a[i] if stacked else a
+    named.update(flat)
+    return {name: _tensor(a, device) for name, a in named.items()}
+
+
+def lm_params_to_numpy(cfg, state_dict) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the port's parameters of
+    ``cfg`` (name -> tensor) as the reference's nested tree of numpy
+    arrays, the stacked groups restacked on their layer axis and the
+    hybrid's tail a list."""
+    parts: dict[str, dict] = {}
+    for name, t in state_dict.items():
+        path, i = _reference_place(cfg, name)
+        parts.setdefault(path, {})[i] = t.detach().cpu().numpy()
+    tree: dict = {}
+    for path, by_index in parts.items():
+        a = by_index[None] if None in by_index else np.stack(
+            [by_index[i] for i in range(len(by_index))])
+        *head, last = path.split(".")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = a
+    if cfg.family == "hybrid":
+        tail = tree.get("tail", {})
+        tree["tail"] = [tail[str(j)] for j in range(len(tail))]
+    return tree
+
+
+def lm_decay(cfg, params) -> dict[str, bool]:
+    """Which of the port's parameters of ``cfg`` (name -> tensor) AdamW
+    decays: the reference decays a leaf of rank 2 or more of its own tree,
+    where a layer of a stacked group has one axis more than here (so its
+    norm scales, biases, ``conv_b``, ``A_log``, ``D`` and ``dt_bias`` are
+    decayed there, and so here)."""
+    return {name: p.ndim + (_reference_place(cfg, name)[1] is not None) >= 2
+            for name, p in dict(params).items()}
 
 
 def lm_caches_from_numpy(tree, device: torch.device | str = "cpu"):

@@ -1,1 +1,2 @@
-"""Launch layer: the serving driver (``python -m repro_torch.launch.serve``)."""
+"""Launch layer: the serving and training drivers
+(``python -m repro_torch.launch.serve``, ``python -m repro_torch.launch.train``)."""
