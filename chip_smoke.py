@@ -151,9 +151,26 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      timed and profiled, the peak memory of backward and of the optimizer
      apart, the optimizer timed, beside the step's bound; printed as the
      ``lm_train`` line;
-  8. prints the barriers the FFT-64 and QRD-16 plans place in their
-     segments, the ``kernels`` JSON line, the ``lm_serve`` and
-     ``lm_train`` lines, the device line and, last, the
+  8. lm-mesh, the LM stack's multi-device layer (plain PyTorch and
+     ``torch.distributed``; none of the ten kernels): (a) a world of one
+     NCCL rank (a ``FileStore`` under ``build/``) and a (1, 1) ("data",
+     "model") mesh: granite-3-2b whole at lm-train (d)'s batch 8 x 128, 4
+     sharded steps with the state placed as DTensors by the sharding rules,
+     equal bit for bit (loss, gradient norm, params, mu, nu) to 4 plain
+     steps from the same weights, the warm steps of both timed; the placed state checkpointed and
+     restored with ``shardings=``, every leaf equal bit for bit; (b) the
+     int8-EF compressed data-parallel step on a (1,) "data" mesh there,
+     same model and batch: loss within 1e-4 and every weight within 5e-3
+     of the plain step's, 5 more steps on the same batch lowering the
+     loss by more than 0.01, its peak memory and the compression pass
+     timed alone; (c) 4 gloo ranks on the host in a subprocess
+     (``tests/mesh_check.py``): the sharded step,
+     decode, elastic restore, the compressed step and the pipeline at
+     smoke width against the single-rank runs; printed as the ``lm_mesh``
+     line;
+  9. prints the barriers the FFT-64 and QRD-16 plans place in their
+     segments, the ``kernels`` JSON line, the ``lm_serve``, ``lm_train``
+     and ``lm_mesh`` lines, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failure raises, so the script exits non-zero and prints no result.
@@ -3436,6 +3453,272 @@ def lm_train(card: str) -> dict:
     return out
 
 
+# lm-mesh: the bars of the reference's sharded cases
+# (tests/mesh_check.py)
+MESH_DP_LOSS_ATOL = 1e-4
+MESH_DP_PARAM_ATOL = 5e-3
+MESH_DP_DROP = 0.01
+# (a)'s steps of each of the plain and the sharded step, one batch
+MESH_STEPS = 4
+
+
+def mesh_rc():
+    from repro_torch.configs import RunConfig
+
+    return RunConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     weight_decay=0.0)
+
+
+def mesh_batch(cfg, B: int = 8, S: int = 128) -> dict:
+    """lm-train (d)'s batch: the launcher's first, 8 x 128, on the card."""
+    from repro_torch.data import PipelineSpec, make_batch
+
+    spec = PipelineSpec(vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+                        seed=0)
+    return make_batch(cfg, spec, 0, device="cuda")
+
+
+def state_leaves(state):
+    """(name, tensor) over a train state's params, mu and nu."""
+    for kind, tree in (("params", state.params), ("mu", state.opt.mu),
+                       ("nu", state.opt.nu)):
+        for k, t in tree.items():
+            yield f"{kind} {k}", t
+
+
+def state_on_host(state) -> dict:
+    """A train state's params, mu and nu as host tensors (global ones)."""
+    from repro_torch.launch.shardings import full
+
+    return {k: full(t).detach().cpu() for k, t in state_leaves(state)}
+
+
+def same_state_bits(name: str, state, want: dict) -> None:
+    """Every leaf of ``state`` (global tensors) equal bit for bit to the
+    host tensors of ``want``, one leaf on the host at a time."""
+    from repro_torch.launch.shardings import full
+
+    for k, t in state_leaves(state):
+        same_bits(name, {k: full(t).detach().cpu()}, {k: want[k]})
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_sharded(root: Path) -> dict:
+    """(a) granite-3-2b whole on a (1, 1) mesh of the world of one:
+    MESH_STEPS plain steps, then as many sharded steps from the same
+    weights with the state placed by the rules (bit for bit after the
+    last; every step timed, so that the warm ones of both compare in one
+    process), then a checkpoint of the placed state restored with
+    ``shardings=`` (bit for bit)."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import full, place, state_shardings
+    from repro_torch.models import build_model
+    from repro_torch.train import (init_state, make_sharded_train_step,
+                                   make_train_step)
+
+    def steps(step, state):
+        """MESH_STEPS steps of ``step`` on the batch, each timed."""
+        ms = []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return state, m, ms
+
+    cfg, rc = get_arch("granite-3-2b"), mesh_rc()
+    batch = mesh_batch(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    model = build_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    state, m, plain_ms = steps(make_train_step(model, rc),
+                               init_state(model, rc))
+    want, want_m = state_on_host(state), {k: m[k].cpu()
+                                          for k in ("loss", "grad_norm")}
+    del model, state, m
+    free_card()
+
+    model = build_model(cfg, device="cuda")
+    state = init_state(model, rc)
+    shardings = state_shardings(mesh, state, cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = place(state, shardings)
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t) * 1e3
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    state, m, sharded_ms = steps(make_sharded_train_step(model, rc, mesh),
+                                 state)
+    peak = torch.cuda.max_memory_allocated()
+    same_bits(f"{MESH_STEPS} sharded steps (1, 1)",
+              {k: m[k].cpu() for k in want_m}, want_m)
+    same_state_bits(f"{MESH_STEPS} sharded steps (1, 1)", state, want)
+    del want, model
+    free_card()
+
+    d = root / "ckpt"
+    t = time.perf_counter()
+    ckpt.save(str(d), 1, state, {"step": 1})
+    save_s = time.perf_counter() - t
+    ckpt_bytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+    t = time.perf_counter()
+    restored, extra = ckpt.restore(str(d), state, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if extra != {"step": 1}:
+        raise AssertionError(f"restored extra {extra}")
+    got = dict(state_leaves(restored))
+    for k, t_ in state_leaves(state):
+        if type(got[k]) is not type(t_) or \
+                got[k].placements != t_.placements:
+            raise AssertionError(f"restored {k} is not placed as saved")
+        if not torch.equal(full(got[k]), full(t_)):
+            raise AssertionError(f"restored {k} differs")
+    shutil.rmtree(d)
+    del state, restored
+    free_card()
+    return {"arch": cfg.name, "params": n_params, "batch": [8, 128],
+            "mesh": dict(mesh.shape), "steps": MESH_STEPS,
+            "plain_step_ms": plain_ms, "sharded_step_ms": sharded_ms,
+            # the warm steps (the first of each builds its caches)
+            "plain_warm_median_ms": float(np.median(plain_ms[1:])),
+            "sharded_warm_median_ms": float(np.median(sharded_ms[1:])),
+            "place_ms": place_ms,
+            "max_memory_allocated": peak, "bit_equal": True,
+            "ckpt_bytes": ckpt_bytes, "save_s": save_s,
+            "restore_s": restore_s, "restored_bit_equal": True}
+
+
+def lm_mesh_compressed() -> dict:
+    """(b) the int8-EF compressed data-parallel step on granite-3-2b whole,
+    a (1,) "data" mesh of the world of one, against the plain step from
+    the same weights; 5 more steps on the same batch; the compression pass
+    (``compressed_psum`` over the model's gradients) timed alone."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import compression
+    from repro_torch.train import (init_state, make_compressed_dp_step,
+                                   make_train_step)
+
+    cfg, rc = get_arch("granite-3-2b"), mesh_rc()
+    batch = mesh_batch(cfg)
+    mesh = make_mesh((1,), ("data",), "cuda")
+    model = build_model(cfg, device="cuda")
+    state, m = make_train_step(model, rc)(init_state(model, rc), batch)
+    want_loss = float(m["loss"])
+    want = {k: p.detach().cpu() for k, p in state.params.items()}
+    del model, state, m
+    free_card()
+
+    model = build_model(cfg, device="cuda")
+    step = make_compressed_dp_step(model, rc, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, rc)
+    step_ms, losses = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if len(losses) == 1:
+            loss_err = abs(losses[0] - want_loss)
+            param_err = max(float((state.params[k].detach().cpu() - w)
+                                  .abs().max()) for k, w in want.items())
+            del want
+    peak = torch.cuda.max_memory_allocated()
+    if not (loss_err < MESH_DP_LOSS_ATOL and param_err < MESH_DP_PARAM_ATOL
+            and losses[-1] < losses[0] - MESH_DP_DROP):
+        raise AssertionError(f"compressed step: loss err {loss_err}, param "
+                             f"err {param_err}, losses {losses}")
+
+    # the compression pass alone, over a backward's gradients
+    loss, _ = model.loss(batch)
+    loss.backward()
+    grads = {k: p.grad for k, p in state.params.items()}
+    group = mesh.group("data")
+    compress_ms = cuda_time_ms(
+        lambda: compression.compressed_psum(grads, state.ef, group, 1), 3)
+    grad_bytes = sum(g.numel() * 4 for g in grads.values())
+    for p in state.params.values():
+        p.grad = None
+    del model, step, state, grads, loss
+    free_card()
+    return {"arch": cfg.name, "batch": [8, 128], "loss_err": loss_err,
+            "param_err": param_err, "losses": losses, "step_ms": step_ms,
+            "max_memory_allocated": peak, "compress_ms": compress_ms,
+            # it reads g and e and writes the mean and e (f32) and the
+            # int8 payload: ~17 bytes an element in the one pass
+            "compress_bound_ms": 17 * grad_bytes / 4 / PEAK_BYTES_PER_S
+            * 1e3}
+
+
+def lm_mesh_host_ranks(root: Path, world: int = 4,
+                       timeout: float = 300.0) -> dict:
+    """(c) ``tests/mesh_check.py`` on ``world`` gloo ranks on the host
+    (``mesh_check.run``, the multi-rank tests' runner: a session of its
+    own, killed whole if it outlives ``timeout``); its results (each case
+    raised on its ranks if it failed)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import mesh_check
+
+    out = root / "host_ranks"
+    out.mkdir(parents=True)
+    res = mesh_check.run(out, list(mesh_check.CASES), world, timeout)
+    run = res.pop("_run")
+    if run["rc"] != 0:
+        raise AssertionError(f"mesh_check exited {run['rc']}:\n"
+                             f"{run['stdout']}\n{run['stderr']}")
+    for name in mesh_check.CASES:
+        mesh_check.case(res, name)
+    return res
+
+
+def lm_mesh(card: str) -> dict:
+    """The lm-mesh phase, (a) to (c)."""
+    import shutil
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    root = ROOT / "build" / "lm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root / 'store'}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(minutes=10))
+    try:
+        out = {"sharded": lm_mesh_sharded(root)}
+        print(f"lm-mesh sharded: {json.dumps(out['sharded'])}", flush=True)
+        out["compressed_dp"] = lm_mesh_compressed()
+        print(f"lm-mesh compressed_dp: {json.dumps(out['compressed_dp'])}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    out["host_ranks"] = lm_mesh_host_ranks(root)
+    out["card"] = card
+    return out
+
+
 def with_segment_rows(fn):
     """``fn()`` and the fused-segment rows run meanwhile: the card's
     ``cuda`` backend runs raw rows, the host's folding backends the plan's
@@ -3515,6 +3798,7 @@ def main() -> int:
         **time_kernels(rng, dev), **time_kernel_layer(rng, dev)}))
     lm = phases.run("lm-serve", lambda: lm_serve(card))
     lm_tr = phases.run("lm-train", lambda: lm_train(card))
+    lm_m = phases.run("lm-mesh", lambda: lm_mesh(card))
     barriers = barrier_counts()
     for name, c in barriers.items():
         print(f"segment barriers per {name} wave: {c['total']} "
@@ -3565,6 +3849,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"lm_serve": lm["yi-6b"]}))
     print(json.dumps({"lm_train": lm_tr["granite-3-2b"]}))
+    print(json.dumps({"lm_mesh": {**lm_m,
+                                  "phase_ms": phases.ms["lm-mesh"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

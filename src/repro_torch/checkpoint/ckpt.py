@@ -15,6 +15,13 @@ list and tuple items as ``[i]``; ``None`` holds no leaf. Saves are
 step-atomic: a crash mid-save leaves LATEST pointing at the previous
 complete checkpoint. ``AsyncSaver`` copies device to host on the caller's
 thread (consistency) and writes on a worker thread.
+
+On a mesh (a state of DTensors, ``launch.shardings.place``) a checkpoint
+holds each leaf's global tensor, gathered on every rank (a collective:
+every rank of the world calls ``save``) and copied to the host and
+written by rank 0 alone (the others drop each gathered leaf at once); the
+files are the same as an unsharded state's. ``restore(shardings=)``
+places each leaf on its mesh, whatever the mesh it was saved from.
 """
 from __future__ import annotations
 
@@ -27,6 +34,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..launch.shardings import full, place_tensor
 
 _SEP = "/"
 
@@ -78,12 +88,18 @@ def _rebuild(tree, fn, path=()):
     return fn(_SEP.join(path), tree)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a world, or a
+    process that is in none."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A leaf as a host array fit for npz, and its dtype's name."""
     if not isinstance(leaf, torch.Tensor):
         a = np.asarray(leaf)
         return a, str(a.dtype)
-    t = leaf.detach().cpu()
+    t = full(leaf).detach().cpu()
     if t.dtype in _BY_TORCH:
         name = _BY_TORCH[t.dtype]
         disk = _VIEWED[name][1]
@@ -92,10 +108,19 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _join_gathers(tree) -> None:
+    """What a rank that does not write does of a save: it joins each
+    DTensor leaf's gather (a collective, in ``_leaves``'s order, as the
+    writer gathers) and drops the global tensor at once, so that no host
+    copy of the state is made off the writer."""
+    for _, leaf in _leaves(tree):
+        full(leaf)
+
+
 def _snapshot(leaf):
     """A host copy of a leaf that later in-place updates cannot reach."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return full(leaf).detach().to("cpu", copy=True)
     return np.array(leaf)
 
 
@@ -108,8 +133,24 @@ def _from_disk(v: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
          shard_mb: int = 512) -> str:
-    """Synchronous atomic save. Returns the checkpoint path."""
-    flat = {k: _host(v) for k, v in _leaves(tree)}
+    """Synchronous atomic save. Returns the checkpoint path. In a world of
+    ranks every rank calls it; rank 0 writes, and every rank returns once
+    the checkpoint is complete."""
+    if _writes():
+        flat = {k: _host(v) for k, v in _leaves(tree)}
+        path = _write(ckpt_dir, step, flat, extra, shard_mb)
+    else:
+        _join_gathers(tree)
+        path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, step: int, flat: dict, extra: dict | None,
+           shard_mb: int) -> str:
+    """Write the host arrays ``flat`` (key -> (array, dtype name)) as the
+    checkpoint of ``step`` and point LATEST at it."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
@@ -162,12 +203,20 @@ class AsyncSaver:
         self._err: BaseException | None = None
 
     def save(self, ckpt_dir: str, step: int, tree, extra=None):
+        """On a mesh every rank calls this (the snapshot gathers each
+        DTensor); only rank 0 writes, and nothing waits for it but its
+        own ``wait``."""
         self.wait()
-        host_tree = _rebuild(tree, lambda _, leaf: _snapshot(leaf))
+        if not _writes():
+            _join_gathers(tree)
+            return
+        # in ``_leaves``'s order, as the other ranks join the gathers
+        snap = [(k, _snapshot(v)) for k, v in _leaves(tree)]
 
         def work():
             try:
-                self.last_path = save(ckpt_dir, step, host_tree, extra)
+                flat = {k: _host(v) for k, v in snap}
+                self.last_path = _write(ckpt_dir, step, flat, extra, 512)
             except BaseException as e:  # surfaced on next wait()
                 self._err = e
 
@@ -198,12 +247,12 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
             shardings=None) -> tuple[Any, dict]:
     """Restore into the structure of ``tree_like``: each leaf as a new
     tensor of the checkpoint's dtype, on the device of its ``tree_like``
-    leaf (the host for a leaf that is not a tensor). ``shardings`` places
-    leaves on a mesh in the reference; on one card it has no meaning and
-    must be None (the port's mesh layer will restore it)."""
-    if shardings is not None:
-        raise ValueError("restore(shardings=...) needs the mesh layer, "
-                         "which the port does not have yet; pass None")
+    leaf (the host for a leaf that is not a tensor). ``shardings``, a tree
+    of the same structure (``launch.shardings.state_shardings``), places
+    each leaf it gives a ``NamedSharding`` as a DTensor on that sharding's
+    mesh (every rank of the mesh calls ``restore``); its None leaves
+    restore as above."""
+    placed = {} if shardings is None else dict(_leaves(shardings))
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -224,6 +273,8 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs model {want}")
         t = _from_disk(arr, manifest["leaves"][key]["dtype"])
+        if key in placed:
+            return place_tensor(t, placed[key])
         return t.to(like.device) if isinstance(like, torch.Tensor) else t
 
     return _rebuild(tree_like, leaf_of), manifest["extra"]

@@ -129,15 +129,37 @@ def _lm_lists(cfg) -> list[tuple[str, str, list[int], bool]]:
              list(range(cfg.n_layers - int(cfg.first_layer_dense))), True)]
 
 
-def _reference_place(cfg, name: str) -> tuple[str, int | None]:
-    """A port parameter's dotted path in the reference's tree, and its
-    index on the stacked layer axis there (None: not stacked)."""
+def _reference_group(cfg, name: str) -> tuple[str, int | None, int]:
+    """A port parameter's dotted path in the reference's tree, its index
+    on the stacked layer axis there (None: not stacked) and the number of
+    layers stacked on that axis (1 where none are)."""
     for path, mod, layers, stacked in _lm_lists(cfg):
         for i, layer in enumerate(layers):
             head = f"{mod}.{layer}."
             if name.startswith(head):
-                return f"{path}.{name[len(head):]}", i if stacked else None
-    return name, None
+                return (f"{path}.{name[len(head):]}", i if stacked else None,
+                        len(layers) if stacked else 1)
+    return name, None, 1
+
+
+def _reference_place(cfg, name: str) -> tuple[str, int | None]:
+    """A port parameter's dotted path in the reference's tree, and its
+    index on the stacked layer axis there (None: not stacked)."""
+    return _reference_group(cfg, name)[:2]
+
+
+def lm_reference_leaf(cfg, name: str, shape) -> tuple[str, tuple, bool]:
+    """Where the port's parameter ``name`` of ``shape`` sits in the
+    reference's tree, as its tree paths name leaves: the ``/``-joined
+    path (a list item as ``[i]``: the hybrid's tail), the shape of the leaf
+    there (the group's layer count in front where the group is stacked)
+    and whether it is stacked."""
+    dotted, index, n = _reference_group(cfg, name)
+    parts = dotted.split(".")
+    if parts[0] == "tail" and cfg.family == "hybrid":
+        parts[1] = f"[{parts[1]}]"
+    stacked = index is not None
+    return "/".join(parts), (n, *shape) if stacked else tuple(shape), stacked
 
 
 def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cpu"

@@ -29,12 +29,19 @@ def target_device(device) -> torch.device:
     return dev
 
 
-def seeded(device: torch.device, seed: int = 0) -> torch.Generator:
+def seeded(device: torch.device, seed: int = 0) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; None on the meta
+    device, which has no generator and where nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return None
     return torch.Generator(device=device).manual_seed(seed)
 
 
 def truncated_normal(shape, scale, *, dtype, device, generator):
-    """``scale`` times a normal cut at +-2, drawn in float32."""
+    """``scale`` times a normal cut at +-2, drawn in float32 (on the meta
+    device only the shape and dtype)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * scale).to(dtype)

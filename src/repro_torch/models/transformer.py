@@ -45,6 +45,10 @@ from .layers import (
     unembed,
 )
 
+# the weight of a MoE's auxiliary (load-balancing) loss in the training
+# objective; the sharded train step weighs it the same way
+AUX_LOSS_WEIGHT = 0.01
+
 
 # ---------------------------------------------------------------------------
 # per-layer parameter modules
@@ -255,7 +259,7 @@ class LM(nn.Module):
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_image_tokens:, :]
         ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
-        loss = ce + 0.01 * aux
+        loss = ce + AUX_LOSS_WEIGHT * aux
         return loss, {"ce": ce, "aux": aux}
 
     # ---- serving: prefill + single-token decode -------------------------------

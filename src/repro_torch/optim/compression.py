@@ -6,15 +6,19 @@ error) to int8 with a per-tensor scale, all-reduces the int8 payload
 residual into the next step. Unbiased-enough in practice because the error
 feedback re-injects what was rounded away.
 
-``compress``/``decompress`` are the pure tensor-level transform and its
-EF state. The collective that all-reduces the payload across devices
-(the reference's ``compressed_psum``) waits for the port's mesh layer.
+Two entry points:
+  * ``compress``/``decompress`` — pure tensor-level transform + EF state,
+    testable anywhere;
+  * ``compressed_psum`` — the collective over a process group: quantize ->
+    all-reduce the int8 payload (as an int32 accumulator to avoid
+    overflow) -> dequantize with the mean scale.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class EFState(NamedTuple):
@@ -51,3 +55,41 @@ def compress(grads: dict[str, torch.Tensor], ef: EFState):
 def decompress(qs: dict[str, torch.Tensor], scales: dict[str, torch.Tensor],
                dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     return {k: (q.float() * scales[k]).to(dtype) for k, q in qs.items()}
+
+
+def psum_payload(q: torch.Tensor, scale: torch.Tensor, group=None):
+    """The int8 payload summed over ``group`` as int32 (127 * n ranks fits
+    easily) and the scales summed, each all-reduced once."""
+    summed = q.to(torch.int32)
+    dist.all_reduce(summed, group=group)
+    s_sum = scale.clone()
+    dist.all_reduce(s_sum, group=group)
+    return summed, s_sum
+
+
+def compressed_psum(grads: dict[str, torch.Tensor], ef: EFState,
+                    group=None, n_devices: int | None = None):
+    """EF-int8 all-reduce over ``group`` (the world if None): returns
+    (mean grads, EF'). The mean scale, applied to the summed payload, is
+    the standard approximation (the per-rank scales differ); the EF
+    residual absorbs the mismatch.
+
+    Leaf by leaf and in place, so that a model's gradients, residuals and
+    payloads are never all held twice: each float32 gradient is
+    overwritten by its mean (a gradient of another dtype gets a new
+    float32 mean) and each carried residual by the new one; the returned
+    dicts hold those tensors."""
+    n = dist.get_world_size(group) if n_devices is None else n_devices
+    mean, errs = {}, {}
+    for k, g in grads.items():
+        e = ef.error[k]
+        x = g.float() + e
+        q, scale = _quant(x)
+        errs[k] = torch.sub(x, q.float() * scale, out=e)
+        del x
+        summed, s_sum = psum_payload(q, scale, group)
+        # 0-d tensor divisors: the card would multiply by a reciprocal
+        n_t = torch.tensor(float(n), device=g.device)
+        m = summed.float().mul_(s_sum / n_t).div_(n_t)
+        mean[k] = g.copy_(m) if g.dtype == torch.float32 else m
+    return mean, EFState(error=errs)

@@ -14,6 +14,11 @@ Fault-tolerance contract:
 The model handed to a resumed run may hold weights a crashed run updated:
 the restore overwrites every parameter in place, and the moments and the
 step counter, so the step reads nothing of the crashed run.
+
+On a mesh (``mesh=``, every rank of the world runs the loop) the state is
+placed by the sharding rules, the step is ``make_sharded_train_step``,
+checkpoints hold the global tensors (rank 0 writes them) and a resume
+restores straight onto the mesh.
 """
 from __future__ import annotations
 
@@ -29,7 +34,12 @@ import torch
 from ..checkpoint import ckpt
 from ..configs.base import ModelConfig, RunConfig
 from ..data.pipeline import PipelineSpec, make_batch
-from .step import TrainState, init_state, make_train_step
+from .step import (
+    TrainState,
+    init_state,
+    make_sharded_train_step,
+    make_train_step,
+)
 
 
 class Watchdog:
@@ -62,10 +72,14 @@ class LoopResult:
     resumed_from: int
 
 
-def _resume(state: TrainState, ckpt_dir: str, step: int):
+def _resume(state: TrainState, ckpt_dir: str, step: int, shardings=None):
     """``state`` at the checkpoint of ``step``: its parameters overwritten
-    in place (they are the model's), its moments and counter replaced."""
-    saved, extra = ckpt.restore(ckpt_dir, state, step=step)
+    in place (they are the model's), its moments and counter replaced; on
+    a mesh (``shardings``) the whole state restored onto it."""
+    saved, extra = ckpt.restore(ckpt_dir, state, step=step,
+                                shardings=shardings)
+    if shardings is not None:
+        return saved, extra
     with torch.no_grad():
         for k, p in state.params.items():
             p.copy_(saved.params[k])
@@ -76,23 +90,31 @@ def train_loop(model, cfg: ModelConfig, rc: RunConfig, spec: PipelineSpec,
                n_steps: int, *, state: TrainState | None = None,
                step_fn: Callable | None = None,
                log_path: str | None = None,
-               fail_at_step: int | None = None) -> LoopResult:
+               fail_at_step: int | None = None, mesh=None) -> LoopResult:
     """Run (or resume) training for up to ``n_steps`` total steps, on the
-    device of ``model``'s weights.
+    device of ``model``'s weights (on ``mesh``'s ranks if given).
 
     ``fail_at_step`` injects a crash (for the restart tests — the paper of
     record for "would it survive node failure" is a test, not a promise).
     """
-    step_fn = step_fn or make_train_step(model, rc, n_steps)
+    if step_fn is None:
+        step_fn = make_train_step(model, rc, n_steps) if mesh is None \
+            else make_sharded_train_step(model, rc, mesh, n_steps)
     saver = ckpt.AsyncSaver() if rc.async_ckpt else None
     os.makedirs(rc.ckpt_dir, exist_ok=True)
     resumed_from = 0
 
     if state is None:
         state = init_state(model, rc)
+        shardings = None
+        if mesh is not None:
+            from ..launch.shardings import place, state_shardings
+
+            shardings = state_shardings(mesh, state, model.cfg)
+            state = place(state, shardings)
         latest = ckpt.latest_step(rc.ckpt_dir)
         if latest is not None:
-            state, extra = _resume(state, rc.ckpt_dir, latest)
+            state, extra = _resume(state, rc.ckpt_dir, latest, shardings)
             resumed_from = int(extra.get("step", latest))
 
     device = next(iter(state.params.values())).device

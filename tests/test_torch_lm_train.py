@@ -31,6 +31,7 @@ from repro.optim import compression as ref_compression
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import SHAPES, RunConfig, get_arch
 from repro_torch.data import PipelineSpec, make_batch, spec_for
+from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, clip, compression
 from repro_torch.train import Watchdog, train_loop
@@ -404,11 +405,14 @@ def test_ckpt_rejects_shape_mismatch_missing_leaf_and_shardings(tmp_path):
         ckpt.restore(str(tmp_path), {"x": torch.ones(5)})
     with pytest.raises(KeyError, match="missing leaf y"):
         ckpt.restore(str(tmp_path), {"y": torch.ones(4)})
-    with pytest.raises(ValueError, match="mesh layer"):
-        ckpt.restore(str(tmp_path), {"x": torch.ones(4)},
-                     shardings={"x": None})
     with pytest.raises(FileNotFoundError):
         ckpt.restore(str(tmp_path / "none"), {"x": torch.ones(4)})
+    # shardings= places the leaves it gives a NamedSharding (held on gloo
+    # ranks: test_torch_mesh_ranks.py, the elastic case, onto (4, 1) and
+    # (1, 4)); a leaf it gives None restores as without it
+    got, _ = ckpt.restore(str(tmp_path), {"x": torch.ones(4)},
+                          shardings={"x": None})
+    assert torch.equal(got["x"], torch.ones(4))
 
 
 def test_reference_checkpoint_restores_in_the_port(tmp_path):
@@ -540,7 +544,54 @@ def test_launch_train_smoke_on_the_host_prints_the_references_line(tmp_path):
 
 
 def test_launch_train_refuses_a_mesh(tmp_path):
-    out = _launch("--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+    # --mesh 2x1 on the host trains on two gloo ranks the launcher starts;
+    # its losses agree with --mesh 1x1's (the launcher's run, in this
+    # process) within the sharded step's bars. On the card it needs one
+    # card a rank: with fewer it raises.
+    common = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+              "--steps", "4", "--batch", "4", "--seq", "32",
+              "--ckpt-every", "2"]
+    _, _, _, _, res = launch_train.run(launch_train.parser().parse_args(
+        common + ["--mesh", "1x1", "--ckpt-dir", str(tmp_path / "ck1x1")]))
+    out = _launch(*common, "--mesh", "2x1", "--ckpt-dir", "ck2x1", "--log",
+                  "log2x1.jsonl", tmp_path=tmp_path)
+    assert out.returncode == 0, out.stderr
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["steps"] == 4 and line["resumed_from"] == 0
+    losses = [json.loads(x)["loss"] for x in
+              (tmp_path / "log2x1.jsonl").read_text().splitlines()]
+    assert len(losses) == 4
+    np.testing.assert_allclose(losses, res.losses, rtol=0, atol=1e-5)
+    assert ckpt.latest_step(str(tmp_path / "ck2x1")) == 4
+    out = _launch("--arch", "granite-3-2b", "--smoke", "--device", "cuda",
                   "--mesh", "2x1", tmp_path=tmp_path)
-    assert out.returncode != 0
-    assert "mesh layer" in out.stderr and "1x1" in out.stderr
+    if torch.cuda.device_count() < 2:
+        assert out.returncode != 0
+        assert "needs 2 CUDA devices" in out.stderr
+
+
+def test_launch_train_under_torchrun_checks_its_world_not_the_nodes_cards(
+        monkeypatch):
+    # torchrun's world may span nodes: the launcher holds WORLD_SIZE to
+    # D*M and needs this rank's own card on its node, never D*M cards on
+    # one node. Each refusal comes before the world is joined; a run that
+    # passes the checks goes on to join it (stubbed here: a pytest worker
+    # never joins a process group).
+    def join(*args, **kwargs):
+        raise RuntimeError("joins the world")
+
+    monkeypatch.setattr(launch_train.dist, "init_process_group", join)
+    common = ["--arch", "granite-3-2b", "--smoke"]
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match="needs a world of 2 ranks"):
+        launch_train.main(common + ["--device", "cpu", "--mesh", "2x1"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="joins the world"):
+        launch_train.main(common + ["--device", "cpu", "--mesh", "2x1"])
+    n = torch.cuda.device_count()
+    monkeypatch.setenv("WORLD_SIZE", "16")
+    monkeypatch.setenv("LOCAL_RANK", str(n))
+    with pytest.raises(SystemExit, match=f"local rank {n} with --device "
+                                         f"cuda needs card {n}"):
+        launch_train.main(common + ["--device", "cuda", "--mesh", "16x1"])
