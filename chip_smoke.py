@@ -89,7 +89,11 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      profile; their first-launch wall times are printed with the card;
      examples: ``examples/torch_{quickstart,fft_pipeline,qrd_solver}.py``
      each run on the card as a process of its own, which must exit 0 and
-     print no False check;
+     print no False check, then ``examples/torch_serve_decode.py`` (8
+     requests served by the slot decode Engine) and
+     ``examples/torch_train_lm.py`` (its default run: ~100M parameters,
+     300 steps at 8 x 256, async checkpoints under ``build/``, the loss
+     must fall), which must exit 0 and print their summary line;
   4. reproduces the [4sm] golden entries and the fleet's four from
      tests/golden_cycles.json (the mixed FFT + QRD entries on the engine
      each names, "auto" where it names none);
@@ -168,9 +172,25 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      decode, elastic restore, the compressed step and the pipeline at
      smoke width against the single-rank runs; printed as the ``lm_mesh``
      line;
-  9. prints the barriers the FFT-64 and QRD-16 plans place in their
-     segments, the ``kernels`` JSON line, the ``lm_serve``, ``lm_train``
-     and ``lm_mesh`` lines, the device line and, last, the
+  9. lm-dryrun, the dry run (``launch.dryrun``: the port's sharded steps
+     run once on meta tensors over a world of fake ranks, counted per
+     device; none of the ten kernels): (a) granite-3-2b ``train_4k`` on
+     the 16x16 mesh through the dry run's command, in a process of its
+     own, its row printed; (b) lm-mesh (a)'s step (granite-3-2b whole,
+     float32, 8 x 128, a (1, 1) mesh) counted on meta tensors over a
+     world of one fake rank, beside lm-mesh (a)'s own sharded steps on
+     the card: its FLOPs must equal ``FlopCounterMode``'s count over one
+     more sharded step after the bit checks, its peak must be within
+     ``DRYRUN_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated`` over the
+     first (above what the process held before the sharded model was
+     built), printed with ``HBM_PER_CHIP``
+     beside the card's ``total_memory`` and the roofline bound (FP32
+     peak) beside lm-mesh (a)'s warm sharded steps; the 16x16 row's
+     collective calls and bytes by op printed beside it; printed as the
+     ``lm_dryrun`` line;
+ 10. prints the barriers the FFT-64 and QRD-16 plans place in their
+     segments, the ``kernels`` JSON line, the ``lm_serve``, ``lm_train``,
+     ``lm_mesh`` and ``lm_dryrun`` lines, the device line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failure raises, so the script exits non-zero and prints no result.
@@ -2642,33 +2662,58 @@ def coldstart():
             for r in (cold, warm)}
 
 
-EXAMPLES = ("torch_quickstart", "torch_fft_pipeline", "torch_qrd_solver")
+EXAMPLES = ("torch_quickstart", "torch_fft_pipeline", "torch_qrd_solver",
+            "torch_serve_decode", "torch_train_lm")
+# the LM examples' arguments beside the default run, and the line each must
+# print (they print no True/False checks: the training example asserts
+# that its loss fell, and exits 1 if it did not)
+EXAMPLE_CKPT = ROOT / "build" / "examples" / "torch_train_lm"
+EXAMPLE_ARGS = {"torch_train_lm": ["--fresh", "--ckpt-dir",
+                                   str(EXAMPLE_CKPT)]}
+EXAMPLE_LINES = {"torch_serve_decode": "served 8 requests in ",
+                 "torch_train_lm": "arch=granite-100m steps=300 "
+                                   "resumed_from=0"}
+
+
+def port_env() -> dict:
+    """This process's environment with ``src`` first on PYTHONPATH."""
+    import os
+
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])}
 
 
 def run_examples() -> dict[str, float]:
-    """The port's three core examples on the card, each as a process of
-    its own: each must exit 0 and print no ``False`` check. Returns each
-    one's wall ms."""
-    import os
+    """The port's examples on the card, each as a process of its own: each
+    must exit 0; the core three must print no ``False`` check, the LM two
+    their ``EXAMPLE_LINES`` line. Returns each one's wall ms."""
+    import shutil
 
     walls = {}
     for name in EXAMPLES:
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, str(ROOT / "examples" / f"{name}.py")],
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+             *EXAMPLE_ARGS.get(name, [])],
             capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": os.pathsep.join(
-                [str(ROOT / "src")] + [p for p in os.environ.get(
-                    "PYTHONPATH", "").split(os.pathsep) if p])})
+            env=port_env())
         walls[name] = (time.perf_counter() - t0) * 1e3
         for line in out.stdout.splitlines():
             print(f"{name}: {line}")
         if out.returncode:
             raise AssertionError(f"{name} exited {out.returncode}:\n"
                                  f"{out.stderr[-4000:]}")
+        if name in EXAMPLE_LINES:
+            if not any(line.startswith(EXAMPLE_LINES[name])
+                       for line in out.stdout.splitlines()):
+                raise AssertionError(f"{name}: no line "
+                                     f"{EXAMPLE_LINES[name]!r}")
+            continue
         words = out.stdout.replace(",", " ").split()
         if "False" in words or "True" not in words:
             raise AssertionError(f"{name}: a check printed False")
+    shutil.rmtree(EXAMPLE_CKPT.parent, ignore_errors=True)
     return walls
 
 
@@ -3517,10 +3562,16 @@ def lm_mesh_sharded(root: Path) -> dict:
     weights with the state placed by the rules (bit for bit after the
     last; every step timed, so that the warm ones of both compare in one
     process), then a checkpoint of the placed state restored with
-    ``shardings=`` (bit for bit)."""
+    ``shardings=`` (bit for bit). The bytes the placed state holds and
+    the first sharded step's peak (``max_memory_allocated``), both over
+    what the process held before the sharded model was built, and the
+    FLOPs of one more sharded step under ``FlopCounterMode`` (after the
+    bit checks: the mode decomposes some ops, which rounds otherwise)
+    are ``probe``, which lm-dryrun holds its prediction to."""
     import shutil
 
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_mesh
@@ -3529,15 +3580,20 @@ def lm_mesh_sharded(root: Path) -> dict:
     from repro_torch.train import (init_state, make_sharded_train_step,
                                    make_train_step)
 
-    def steps(step, state):
-        """MESH_STEPS steps of ``step`` on the batch, each timed."""
+    def steps(step, state, probe=None):
+        """MESH_STEPS steps of ``step`` on the batch, each timed; with
+        ``probe`` (a dict holding ``base_bytes``), the first step's peak
+        put there."""
         ms = []
-        for _ in range(MESH_STEPS):
+        for i in range(MESH_STEPS):
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step(state, batch)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
+            if probe is not None and i == 0:
+                probe["peak_bytes"] = torch.cuda.max_memory_allocated() \
+                    - probe["base_bytes"]
         return state, m, ms
 
     cfg, rc = get_arch("granite-3-2b"), mesh_rc()
@@ -3552,6 +3608,7 @@ def lm_mesh_sharded(root: Path) -> dict:
     del model, state, m
     free_card()
 
+    probe = {"base_bytes": torch.cuda.memory_allocated()}
     model = build_model(cfg, device="cuda")
     state = init_state(model, rc)
     shardings = state_shardings(mesh, state, cfg)
@@ -3561,13 +3618,18 @@ def lm_mesh_sharded(root: Path) -> dict:
     torch.cuda.synchronize()
     place_ms = (time.perf_counter() - t) * 1e3
     free_card()
+    probe["held_bytes"] = torch.cuda.memory_allocated() - probe["base_bytes"]
     torch.cuda.reset_peak_memory_stats()
-    state, m, sharded_ms = steps(make_sharded_train_step(model, rc, mesh),
-                                 state)
+    sharded = make_sharded_train_step(model, rc, mesh)
+    state, m, sharded_ms = steps(sharded, state, probe)
     peak = torch.cuda.max_memory_allocated()
     same_bits(f"{MESH_STEPS} sharded steps (1, 1)",
               {k: m[k].cpu() for k in want_m}, want_m)
     same_state_bits(f"{MESH_STEPS} sharded steps (1, 1)", state, want)
+    with FlopCounterMode(display=False) as fc:
+        state, m = sharded(state, batch)
+    torch.cuda.synchronize()
+    probe["flops"] = float(fc.get_total_flops())
     del want, model
     free_card()
 
@@ -3598,7 +3660,7 @@ def lm_mesh_sharded(root: Path) -> dict:
             # the warm steps (the first of each builds its caches)
             "plain_warm_median_ms": float(np.median(plain_ms[1:])),
             "sharded_warm_median_ms": float(np.median(sharded_ms[1:])),
-            "place_ms": place_ms,
+            "place_ms": place_ms, "probe": probe,
             "max_memory_allocated": peak, "bit_equal": True,
             "ckpt_bytes": ckpt_bytes, "save_s": save_s,
             "restore_s": restore_s, "restored_bit_equal": True}
@@ -3719,6 +3781,118 @@ def lm_mesh(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm-dryrun: the dry run (launch.dryrun: the port's sharded steps counted on
+# meta tensors over a world of fake ranks) and its prediction of lm-mesh
+# (a)'s step, held to the card
+# ---------------------------------------------------------------------------
+
+# lm-mesh (a)'s step: granite-3-2b whole, float32, batch 8 x 128
+MESH_SHAPE = ("lm_mesh_8x128", 128, 8, "train")
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def lm_dryrun_row(root: Path) -> tuple[dict, dict]:
+    """granite-3-2b train_4k on 16x16 through the dry run's command, in a
+    process of its own; its row, and its collective calls and bytes by op
+    (the command's ``collectives:`` line)."""
+    out = root / "dryrun.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-3-2b", "--shape", "train_4k", "--mesh", "sp", "--out",
+         str(out)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=port_env())
+    rows = [json.loads(line) for line in out.read_text().splitlines()] \
+        if out.exists() else []
+    if proc.returncode or len(rows) != 1 or rows[0]["status"] != "ok":
+        raise AssertionError(f"dry run exited {proc.returncode}, rows "
+                             f"{rows}:\n{proc.stderr[-4000:]}")
+    tag = "   collectives: "
+    coll = [json.loads(line[len(tag):]) for line in proc.stdout.splitlines()
+            if line.startswith(tag)]
+    if len(coll) != 1 or sum(v["bytes"] for v in coll[0].values()) \
+            != rows[0]["collective_bytes"]:
+        raise AssertionError(f"collectives by op {coll} do not sum to the "
+                             f"row's {rows[0]['collective_bytes']}")
+    return rows[0], coll[0]
+
+
+def lm_dryrun_predict() -> dict:
+    """The dry run's counts of lm-mesh (a)'s sharded step (``build_cell``
+    on a (1, 1) mesh of a world of one fake rank, meta tensors) and its
+    roofline at the card's FP32 peak."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import build_cell, cell_costs, fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline.analysis import PEAK_FLOPS_FP32, roofline_row
+
+    with fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        cell = build_cell("granite-3-2b", ShapeConfig(*MESH_SHAPE), False,
+                          mesh=mesh, dtype=torch.float32)
+        costs = cell_costs(cell)
+        costs.update(roofline_row(cell.cfg, cell.shape,
+                                  {**costs, "n_chips": 1},
+                                  peak_flops=PEAK_FLOPS_FP32))
+        del cell
+    return costs
+
+
+def lm_dryrun(card: str, mesh_step: dict) -> dict:
+    """The lm-dryrun phase: the granite-3-2b train_4k row on 16x16, then
+    the prediction of lm-mesh (a)'s step beside the card's run of it
+    (``mesh_step``, lm-mesh (a)'s result): FLOPs equal, peak within
+    ``DRYRUN_PEAK_RTOL``."""
+    import shutil
+
+    import torch
+    from repro_torch.roofline.analysis import HBM_PER_CHIP
+
+    root = ROOT / "build" / "lm_dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    row, collectives = lm_dryrun_row(root)
+    print(f"lm-dryrun row: {json.dumps(row)}", flush=True)
+    print(f"lm-dryrun collectives: {json.dumps(collectives)}", flush=True)
+    pred = lm_dryrun_predict()
+    shutil.rmtree(root, ignore_errors=True)
+    got = mesh_step["probe"]
+    peak_err = abs(pred["peak_bytes_per_device"] - got["peak_bytes"]) \
+        / got["peak_bytes"]
+    out = {
+        "granite_train_4k_16x16": row,
+        "granite_train_4k_16x16_collectives": collectives,
+        "mesh_step": {
+            "shape": list(MESH_SHAPE),
+            "flops": pred["flops"], "card_flops": got["flops"],
+            "argument_bytes": pred["argument_bytes_per_device"],
+            "card_held_bytes": got["held_bytes"],
+            "peak_bytes": pred["peak_bytes_per_device"],
+            "card_peak_bytes": got["peak_bytes"],
+            "card_base_bytes": got["base_bytes"], "peak_rel_err": peak_err,
+            "bytes_accessed": pred["bytes_accessed"],
+            "collective_bytes": pred["collective_bytes"],
+            "bound_ms": pred["step_time_lower_bound_s"] * 1e3,
+            "bound_by": pred["dominant"],
+            "warm_step_ms": mesh_step["sharded_step_ms"][1:],
+            "count_s": pred["compile_s"]},
+        "hbm_per_chip": HBM_PER_CHIP,
+        "total_memory": torch.cuda.get_device_properties(0).total_memory,
+        "card": card}
+    print(f"lm-dryrun mesh step: {json.dumps(out['mesh_step'])}",
+          flush=True)
+    if pred["flops"] != got["flops"]:
+        raise AssertionError(f"dry-run FLOPs {pred['flops']} != the "
+                             f"card's {got['flops']}")
+    if peak_err > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dry-run peak {pred['peak_bytes_per_device']}"
+                             f" vs the card's {got['peak_bytes']}: "
+                             f"{peak_err:.3f} > {DRYRUN_PEAK_RTOL}")
+    return out
+
+
 def with_segment_rows(fn):
     """``fn()`` and the fused-segment rows run meanwhile: the card's
     ``cuda`` backend runs raw rows, the host's folding backends the plan's
@@ -3799,6 +3973,7 @@ def main() -> int:
     lm = phases.run("lm-serve", lambda: lm_serve(card))
     lm_tr = phases.run("lm-train", lambda: lm_train(card))
     lm_m = phases.run("lm-mesh", lambda: lm_mesh(card))
+    lm_d = phases.run("lm-dryrun", lambda: lm_dryrun(card, lm_m["sharded"]))
     barriers = barrier_counts()
     for name, c in barriers.items():
         print(f"segment barriers per {name} wave: {c['total']} "
@@ -3851,6 +4026,8 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_tr["granite-3-2b"]}))
     print(json.dumps({"lm_mesh": {**lm_m,
                                   "phase_ms": phases.ms["lm-mesh"]}}))
+    print(json.dumps({"lm_dryrun": {**lm_d,
+                                    "phase_ms": phases.ms["lm-dryrun"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

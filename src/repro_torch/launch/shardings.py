@@ -30,12 +30,15 @@ invented); none of the configs' leaves gets one on any mesh tried
 
 Placement. ``placements(mesh, spec)`` turns a spec into DTensor placements
 (``Shard(d)``/``Replicate()`` per mesh dim); ``place`` puts a tree on its
-mesh with ``distribute_tensor`` (the placed leaves are copies);
+mesh with ``distribute_tensor`` (the placed leaves are copies; a meta
+tree gives meta DTensors of each rank's shard, as the dry run places its
+state);
 ``local_slice`` cuts the rank's shard out of a full tensor the way
 ``distribute_tensor`` does, without communication.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from typing import Any
@@ -110,8 +113,22 @@ def _matrix_spec(mesh, shape, prefix_none: int, *, under_experts: bool):
     return P(*([None] * prefix_none + [spec_in, spec_out]))
 
 
-# perf-experiment hooks: leaf-name -> policy ("replicate" | "fsdp_in")
+# perf-experiment hooks: leaf-name -> policy ("replicate" | "fsdp_in"),
+# set for one cell at a time through ``param_overrides``
 PARAM_OVERRIDES: dict[str, str] = {}
+
+
+@contextlib.contextmanager
+def param_overrides(overrides: dict[str, str] | None):
+    """``PARAM_OVERRIDES`` updated with ``overrides`` inside the block and
+    restored to what it held when the block ends."""
+    saved = dict(PARAM_OVERRIDES)
+    PARAM_OVERRIDES.update(overrides or {})
+    try:
+        yield
+    finally:
+        PARAM_OVERRIDES.clear()
+        PARAM_OVERRIDES.update(saved)
 
 
 def param_spec(mesh, path: str, shape, cfg=None,
@@ -355,12 +372,18 @@ def placements(mesh, spec) -> tuple:
 
 def place_tensor(t: torch.Tensor, sharding: NamedSharding):
     """A copy of ``t`` as a DTensor on ``sharding``'s mesh (every rank
-    passes the same full ``t``)."""
-    from torch.distributed.tensor import distribute_tensor
+    passes the same full ``t``). A meta ``t`` gives a meta DTensor whose
+    local tensor has the shape of the rank's shard (no communication)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     dm = sharding.mesh.device_mesh
-    return distribute_tensor(t.detach().to(dm.device_type).clone(), dm,
-                             list(sharding.placements))
+    pls = list(sharding.placements)
+    if t.is_meta:
+        local = _cut(t, dm, pls)
+        return DTensor.from_local(
+            torch.empty(local.shape, dtype=t.dtype, device="meta"), dm, pls,
+            run_check=False, shape=t.shape, stride=t.stride())
+    return distribute_tensor(t.detach().to(dm.device_type).clone(), dm, pls)
 
 
 def place(tree, shardings):

@@ -1,5 +1,5 @@
-"""Decode on a mesh: one token step with the parameters and caches placed
-as DTensors under the sharding rules.
+"""Decode (and prefill) on a mesh: one token step with the parameters and
+caches placed as DTensors under the sharding rules.
 
 The parameters are gathered into the model; each rank runs the model's
 own ``decode_step`` on its rows of the batch (the caches' "model"-axis
@@ -66,6 +66,27 @@ def make_sharded_decode_step(model, mesh):
         placed = sh.tree_map2(lambda t, like: _placed_like(t, like, axes),
                               new, caches)
         return logits, placed
+
+    return step
+
+
+def make_sharded_prefill_step(model, mesh, last_only: bool = False):
+    """Returns step(params, batch) -> logits: ``params`` placed by
+    ``param_shardings``, ``batch`` whole on every rank. Each rank gathers
+    the parameters into the model and runs its forward (``last_only``: the
+    last position's logits only) on its rows of the batch; the logits are
+    gathered over the data axes, so every rank returns the whole batch's."""
+    own = dict(model.named_parameters())
+
+    def step(params, batch):
+        with torch.no_grad():
+            for k, p in own.items():
+                p.copy_(sh.full(params[k]))
+        bspec = sh.batch_spec(mesh, next(iter(batch.values())).shape[0])
+        local = {k: sh.local_slice(v, mesh, bspec) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = model.forward(local, last_only=last_only)
+        return sh.full(_placed_rows(logits, mesh, bspec))
 
     return step
 

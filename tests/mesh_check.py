@@ -21,6 +21,11 @@ width 16, 4 microbatches of 2):
     loss within 1e-5 and every parameter within 1e-4;
   * decode: two sharded decode steps against unsharded ones, logits and
     new caches ``==`` on (1, W), within 3e-5 on (2, W/2);
+  * prefill: the sharded prefill step on (2, W/2) and (W, 1), with
+    ``last_only`` off and on, its logits (gathered on every rank) within
+    3e-5 of the unsharded forward's; rank 0 writes them and the tokens to
+    ``DIR/prefill_<shape>_<all|last>.npz`` for a comparison with the
+    reference's forward elsewhere;
   * elastic: a state stepped on (2, W/2), saved, restored onto (W, 1),
     (1, W) and unsharded, every leaf bit-identical; a step's loss from
     the (W, 1) restore within 1e-5 of the unsharded restore's;
@@ -31,7 +36,10 @@ width 16, 4 microbatches of 2):
     its parameter gradients within 1e-4;
   * psum: ``compressed_psum`` on ``psum_inputs(world)``, each rank's
     payload sums, mean and residuals written to ``DIR/psum_<rank>.npz``
-    for a comparison elsewhere.
+    for a comparison elsewhere;
+  * collectives: ``roofline.analysis.collective_bytes`` over one call of
+    each kind of ``collective_cases``, the bytes it counted beside the
+    bytes counted by hand (compared elsewhere).
 """
 from __future__ import annotations
 
@@ -56,7 +64,8 @@ DP_DROP = 0.01
 PP_ATOL = 1e-5
 PP_GRAD_ATOL = 1e-4
 
-CASES = ("train_step", "decode", "elastic", "compressed_dp", "pipeline")
+CASES = ("train_step", "decode", "prefill", "elastic", "compressed_dp",
+         "pipeline")
 
 
 def _setup():
@@ -189,6 +198,42 @@ def case_decode(world: int, out: str) -> dict:
         if err > DECODE_ATOL:
             raise AssertionError(f"decode on {key} differs by {err}")
         res[key] = {"max_abs_err": err}
+    return res
+
+
+def case_prefill(world: int, out: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.serve.sharded import make_sharded_prefill_step
+    from repro_torch.launch.shardings import param_shardings, place
+
+    cfg, _, batch = _setup()
+    batch = {"tokens": batch["tokens"]}
+    model = _model(cfg)
+    res = {}
+    for last_only in (False, True):
+        with torch.no_grad():
+            want = model.forward(batch, last_only=last_only)
+        for shape in _shapes(world)[1:]:
+            mesh = _mesh(shape)
+            m2 = _model(cfg)
+            own = dict(m2.named_parameters())
+            params = place(own, param_shardings(mesh, own, cfg))
+            got = make_sharded_prefill_step(m2, mesh, last_only)(params,
+                                                                 batch)
+            key = "x".join(map(str, shape)) + ("_last" if last_only
+                                               else "_all")
+            if got.shape != want.shape:
+                raise AssertionError(f"prefill on {key}: {tuple(got.shape)}"
+                                     f" != {tuple(want.shape)}")
+            err = float((got - want).abs().max())
+            if err > DECODE_ATOL:
+                raise AssertionError(f"prefill on {key} differs by {err}")
+            if dist.get_rank() == 0:
+                np.savez(os.path.join(out, f"prefill_{key}.npz"),
+                         logits=got.numpy(),
+                         tokens=batch["tokens"].numpy())
+            res[key] = {"max_abs_err": err}
     return res
 
 
@@ -363,6 +408,50 @@ def case_psum(world: int, out: str) -> dict:
              **{f"mean/{k}": v.numpy() for k, v in mean.items()},
              **{f"ef/{k}": v.numpy() for k, v in ef2.error.items()})
     return {"leaves": len(PSUM_SHAPES)}
+
+
+# collectives: (what, bytes of its output on each rank, counted by hand)
+# for a world of W ranks
+def collective_cases(world: int) -> dict[str, int]:
+    return {"all_reduce f32 (3, 5)": 3 * 5 * 4,
+            "all_gather_into_tensor f32 (2, 3) each": world * 2 * 3 * 4,
+            "reduce_scatter_tensor f32 (W * 2,) in": 2 * 4,
+            "broadcast i64 (7,)": 7 * 8,
+            "DTensor full_tensor bf16 Shard(0) of (W * 4, 8)":
+                world * 4 * 8 * 2}
+
+
+def case_collectives(world: int, out: str) -> dict:
+    """``roofline.analysis.collective_bytes`` over one call of each kind
+    in ``collective_cases`` (each alone, then all together): the output
+    bytes of each, counted once."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.roofline.analysis import collective_bytes
+
+    mesh = _mesh((world,), ("data",))
+    rank = dist.get_rank()
+    calls = [
+        lambda: dist.all_reduce(torch.ones(3, 5)),
+        lambda: dist.all_gather_into_tensor(torch.empty(world * 2, 3),
+                                            torch.full((2, 3), rank * 1.0)),
+        lambda: dist.reduce_scatter_tensor(torch.empty(2),
+                                           torch.ones(world * 2)),
+        lambda: dist.broadcast(torch.arange(7), src=0),
+        lambda: DTensor.from_local(
+            torch.ones(4, 8, dtype=torch.bfloat16), mesh.device_mesh,
+            [Shard(0)]).full_tensor(),
+    ]
+    got = {}
+    for what, call in zip(collective_cases(world), calls):
+        with collective_bytes() as cb:
+            call()
+        got[what] = {"bytes": cb.total, "calls": cb.calls}
+    with collective_bytes() as cb:
+        for call in calls:
+            call()
+    return {"each": got, "total": cb.total, "calls": cb.calls}
 
 
 def _rank(rank: int, cases: list[str], world: int, out: str) -> None:

@@ -43,7 +43,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_reference():
 
 def test_port_examples_exist():
     assert [p.name for p in EXAMPLES] == [
-        "torch_fft_pipeline.py", "torch_qrd_solver.py", "torch_quickstart.py"]
+        "torch_fft_pipeline.py", "torch_qrd_solver.py", "torch_quickstart.py",
+        "torch_serve_decode.py", "torch_train_lm.py"]
 
 
 def test_no_port_source_names_the_reference_package():

@@ -9,7 +9,9 @@ of those are red on this jax). The bars are stated in
 One world of 4 ranks runs every case, in a subprocess of its own session
 (``mesh_check.run``): this process never joins a process group and
 never forks. The pipeline's sequential function is also held to the
-reference's on the same numpy inputs, here, with no ranks.
+reference's on the same numpy inputs, here, with no ranks, and the
+sharded prefill's gathered logits to the reference's ``forward`` on the
+same weights (``convert.lm_params_to_numpy``), within the decode bar.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,9 @@ import torch
 
 import mesh_check
 from mesh_check import case
+from repro.configs import get_arch as ref_get_arch
+from repro.models import build_model as ref_build_model
+from repro_torch import convert
 from repro_torch.train.pipeline import sequential_apply, stack_stages
 
 WORLD = 4
@@ -26,8 +31,9 @@ WORLD = 4
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    return mesh_check.run(tmp_path_factory.mktemp("mesh"),
-                          list(mesh_check.CASES), WORLD)
+    out = tmp_path_factory.mktemp("mesh")
+    return {**mesh_check.run(out, list(mesh_check.CASES), WORLD),
+            "_out": out}
 
 
 @pytest.mark.parametrize("shape", ["1x4", "2x2", "4x1"])
@@ -49,6 +55,26 @@ def test_sharded_decode_matches_unsharded_decode(results, shape):
     assert err <= mesh_check.DECODE_ATOL
     if shape.startswith("1x"):
         assert err == 0.0
+
+
+@pytest.mark.parametrize("last", ["all", "last"])
+@pytest.mark.parametrize("shape", ["2x2", "4x1"])
+def test_sharded_prefill_matches_the_reference_forward(results, shape,
+                                                       last):
+    key = f"{shape}_{last}"
+    assert case(results, "prefill")[key]["max_abs_err"] \
+        <= mesh_check.DECODE_ATOL
+    got = np.load(results["_out"] / f"prefill_{key}.npz")
+    cfg = ref_get_arch("granite-3-2b", smoke=True)
+    port = mesh_check._model(mesh_check._setup()[0])
+    params = jax.tree_util.tree_map(jnp.asarray, convert.lm_params_to_numpy(
+        port.cfg, port.state_dict()))
+    want = ref_build_model(cfg).forward(
+        params, {"tokens": jnp.asarray(got["tokens"])},
+        last_only=last == "last")
+    assert got["logits"].shape == want.shape
+    np.testing.assert_allclose(got["logits"], np.asarray(want),
+                               atol=mesh_check.DECODE_ATOL, rtol=0)
 
 
 def test_elastic_restore_is_bit_identical_and_steps_alike(results):
