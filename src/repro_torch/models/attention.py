@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..spans import span
 from .layers import apply_rope, dense_init, param
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -103,16 +104,20 @@ def attention(p, x, positions, cfg, *, x_kv=None, causal=True,
         k = apply_rope(k, positions, cfg.rope_theta)
     S = q.shape[1]
     qc = getattr(cfg, "attn_q_chunk", 0)
-    if causal and qc and S > qc and S % qc == 0 and self_attn:
-        out = _blocked_causal(q, k, v, qc, window, x.dtype,
-                              getattr(cfg, "attn_w_bf16", False))
-        return out @ p.wo, (k, v)
-    scores = _gqa_scores(q, k)                       # (B,G,R,S,T)
-    S, T = scores.shape[-2], scores.shape[-1]
-    if causal:
-        scores = torch.where(_band(S, T, window, x.device), scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = _gqa_out(w, v, x.dtype)
+    with span("attn.scores") as s:
+        qs, ks, vs = s.inputs(q, k, v)
+        if causal and qc and S > qc and S % qc == 0 and self_attn:
+            out = _blocked_causal(qs, ks, vs, qc, window, x.dtype,
+                                  getattr(cfg, "attn_w_bf16", False))
+        else:
+            scores = _gqa_scores(qs, ks)                 # (B,G,R,S,T)
+            S, T = scores.shape[-2], scores.shape[-1]
+            if causal:
+                scores = torch.where(_band(S, T, window, x.device), scores,
+                                     NEG_INF)
+            w = torch.softmax(scores, dim=-1)
+            out = _gqa_out(w, vs, x.dtype)
+        out = s.output(out)
     return out @ p.wo, (k, v)
 
 

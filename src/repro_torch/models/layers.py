@@ -147,8 +147,8 @@ class Embed(nn.Module):
                                             generator=generator))
 
 
-def embed(p, tokens):
-    return F.embedding(tokens.long(), p.embedding)
+def embed(table, tokens):
+    return F.embedding(tokens.long(), table)
 
 
 def unembed(p, x, soft_cap: float = 0.0):

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..spans import span
 from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rg
@@ -107,11 +108,19 @@ def _ffn(p, cfg, y):
 
 
 def _attn_block_fwd(p, cfg, x, positions, window=0):
-    h, kv = attn.attention(p.attn, rmsnorm(p.ln_attn, x, cfg.norm_eps),
-                           positions, cfg, window=window)
-    x = x + h
-    m, aux = _ffn(p, cfg, rmsnorm(p.ln_mlp, x, cfg.norm_eps))
-    return x + m, aux, kv
+    # the residual adds lie inside the sublayers' spans: the residual
+    # reads its input through ``inputs`` too, which keeps the sum of its
+    # gradient with the sublayer's where it is without the spans
+    with span("attn") as s:
+        x = s.inputs(x)
+        h, kv = attn.attention(p.attn, rmsnorm(p.ln_attn, x, cfg.norm_eps),
+                               positions, cfg, window=window)
+        x = x + s.output(h)
+    with span("ffn") as s:
+        x = s.inputs(x)
+        m, aux = _ffn(p, cfg, rmsnorm(p.ln_mlp, x, cfg.norm_eps))
+        x = x + s.output(m)
+    return x, aux, kv
 
 
 def _ssm_block_fwd(p, cfg, x, conv_st=None, ssm_st=None, decode=False):
@@ -208,7 +217,11 @@ class LM(nn.Module):
     # ---- embedding frontends ------------------------------------------------
     def _embed_inputs(self, batch):
         cfg = self.cfg
-        x = embed(self.embed, batch["tokens"])
+        with span("embed") as s:
+            # the table read through ``inputs``: the backward span ends
+            # with the gather's scatter into it
+            x = s.output(embed(s.inputs(self.embed.embedding),
+                               batch["tokens"]))
         if cfg.family == "vlm":
             img = batch["image_embeds"].to(x.dtype) @ self.img_proj
             x = torch.cat([img, x], dim=1)
@@ -246,11 +259,13 @@ class LM(nn.Module):
                 auxs.append(aux)
             if cfg.family == "moe":
                 aux_total = torch.stack(auxs).sum()
-        x = rmsnorm(self.ln_f, x, cfg.norm_eps)
-        if last_only:
-            # serving prefill: only the last position's logits are needed
-            x = x[:, -1:]
-        return unembed(self.embed, x, cfg.logits_soft_cap), aux_total
+        with span("head") as s:
+            x = rmsnorm(self.ln_f, s.inputs(x), cfg.norm_eps)
+            if last_only:
+                # serving prefill: only the last position's logits are needed
+                x = x[:, -1:]
+            logits = s.output(unembed(self.embed, x, cfg.logits_soft_cap))
+        return logits, aux_total
 
     # ---- loss ----------------------------------------------------------------
     def loss(self, batch):
@@ -258,7 +273,9 @@ class LM(nn.Module):
         logits, aux = self._forward_full(batch)
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_image_tokens:, :]
-        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        with span("head") as s:
+            ce = s.output(cross_entropy(s.inputs(logits)[:, :-1],
+                                        batch["labels"][:, 1:]))
         loss = ce + AUX_LOSS_WEIGHT * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -359,7 +376,7 @@ class LM(nn.Module):
         new caches); the given caches are not written."""
         cfg = self.cfg
         pos = caches["pos"] if pos is None else pos
-        x = embed(self.embed, token)
+        x = embed(self.embed.embedding, token)
         pos_v = attn.positions_of(pos, x.shape[0], x.device)
         if cfg.family == "hybrid":
             x = x * scalar_in(np.sqrt(cfg.d_model), x.dtype)

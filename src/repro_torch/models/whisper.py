@@ -100,7 +100,7 @@ class EncDec(nn.Module):
     def decode_full(self, tokens, enc_out, want_cache=False):
         cfg = self.cfg
         B, S = tokens.shape
-        x = embed(self.embed, tokens)
+        x = embed(self.embed.embedding, tokens)
         x = x + torch.from_numpy(sinusoidal_positions(S, cfg.d_model)).to(
             device=x.device, dtype=x.dtype)[None]
         positions = _arange_rows(S, x)
@@ -163,7 +163,7 @@ class EncDec(nn.Module):
         cfg = self.cfg
         pos = caches["pos"] if pos is None else pos
         B = token.shape[0]
-        x = embed(self.embed, token)
+        x = embed(self.embed.embedding, token)
         pos_v = attn.positions_of(pos, B, x.device)
         # sinusoidal position at a dynamic (per-row) index, computed directly
         d = cfg.d_model

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..configs.base import RunConfig
+from ..spans import span
 
 EPS = 1e-8
 _F32 = np.float32
@@ -80,23 +81,38 @@ def apply(rc: RunConfig, params: dict[str, torch.Tensor],
     is decayed: if None, the reference's rule on a plain dict, the leaves
     of rank 2 or more (a model's set comes from ``convert.lm_decay``,
     which follows the reference's stacked layout)."""
-    step = state.step + 1
-    lr = schedule(rc, step, total_steps)
-    b1, b2 = rc.beta1, rc.beta2
-    bc1, bc2 = _bias_correction(b1, int(step)), _bias_correction(b2, int(step))
-    if decay is None:
-        decay = {k: p.ndim >= 2 for k, p in params.items()}
-    # a model's parameters sit on one device: the first leaf's
-    dev = next(iter(params.values())).device
-    lr_t, bc1_t, bc2_t = (torch.tensor(x, device=dev) for x in (lr, bc1, bc2))
-    with torch.no_grad():
-        for k, p in params.items():
-            g = grads[k].float()
-            m, v = state.mu[k], state.nu[k]
-            m.mul_(b1).add_(g * (1 - b1))
-            v.mul_(b2).add_(g * (1 - b2) * g)
-            delta = (m / bc1_t).div_((v / bc2_t).sqrt_().add_(EPS))
-            if decay[k]:
-                delta.add_(rc.weight_decay * p.float())
-            p.copy_(p.float() - lr_t * delta)
+    with span("optim.adamw") as s:
+        if s.on:
+            s.count(bytes=_update_bytes(params, grads, state))
+        step = state.step + 1
+        lr = schedule(rc, step, total_steps)
+        b1, b2 = rc.beta1, rc.beta2
+        bc1 = _bias_correction(b1, int(step))
+        bc2 = _bias_correction(b2, int(step))
+        if decay is None:
+            decay = {k: p.ndim >= 2 for k, p in params.items()}
+        # a model's parameters sit on one device: the first leaf's
+        dev = next(iter(params.values())).device
+        lr_t, bc1_t, bc2_t = (torch.tensor(x, device=dev)
+                              for x in (lr, bc1, bc2))
+        with torch.no_grad():
+            for k, p in params.items():
+                g = grads[k].float()
+                m, v = state.mu[k], state.nu[k]
+                m.mul_(b1).add_(g * (1 - b1))
+                v.mul_(b2).add_(g * (1 - b2) * g)
+                delta = (m / bc1_t).div_((v / bc2_t).sqrt_().add_(EPS))
+                if decay[k]:
+                    delta.add_(rc.weight_decay * p.float())
+                p.copy_(p.float() - lr_t * delta)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _update_bytes(params: dict, grads: dict, state: AdamWState) -> int:
+    """The least bytes one update moves: each parameter read and written,
+    its gradient read, both moments read and written (28 bytes an element
+    in float32)."""
+    return sum(p.numel() * (2 * p.element_size() + grads[k].element_size()
+                            + 2 * state.mu[k].element_size()
+                            + 2 * state.nu[k].element_size())
+               for k, p in params.items())

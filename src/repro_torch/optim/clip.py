@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import span
+
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     """The norm over every leaf, in float32, on the leaves' device. The
@@ -17,13 +19,15 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 def clip_by_global_norm(tree: dict[str, torch.Tensor], max_norm: float):
     """Scales every leaf by ``min(1, max_norm / (norm + 1e-6))`` in place
     and returns ``(tree, norm)``."""
-    norm = global_norm(tree)
-    limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
-    scale = torch.clamp(limit / (norm + 1e-6), max=1.0)
-    with torch.no_grad():
-        for g in tree.values():
-            if g.dtype == torch.float32:
-                g.mul_(scale)
-            else:
-                g.copy_(g.float() * scale)
+    with span("optim.clip"):
+        norm = global_norm(tree)
+        limit = torch.tensor(max_norm, dtype=torch.float32,
+                             device=norm.device)
+        scale = torch.clamp(limit / (norm + 1e-6), max=1.0)
+        with torch.no_grad():
+            for g in tree.values():
+                if g.dtype == torch.float32:
+                    g.mul_(scale)
+                else:
+                    g.copy_(g.float() * scale)
     return tree, norm

@@ -32,6 +32,7 @@ from ..convert import lm_decay
 from ..launch import shardings as sh
 from ..models.transformer import AUX_LOSS_WEIGHT
 from ..optim import adamw, clip, compression
+from ..spans import span
 
 
 class TrainState(NamedTuple):
@@ -67,8 +68,10 @@ def _grads(model, params: dict, batch: dict):
     reference's gradient of it is)."""
     for p in params.values():
         p.grad = None
-    loss, metrics = model.loss(batch)
-    loss.backward()
+    with span("train.forward"):
+        loss, metrics = model.loss(batch)
+    with span("train.backward"):
+        loss.backward()
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}
     return loss.detach(), _detached(metrics), grads
@@ -109,19 +112,20 @@ def make_train_step(model, rc: RunConfig, total_steps: int = 10_000):
         return loss_sum, metrics, acc
 
     def step_fn(state: TrainState, batch):
-        loss, metrics, grads = compute_grads(state.params, batch)
-        grads, gnorm = clip.clip_by_global_norm(grads, rc.grad_clip)
-        params, opt = adamw.apply(rc, state.params, grads, state.opt,
-                                  total_steps, decay=decay)
-        del grads
-        for p in params.values():
-            p.grad = None
-        out = TrainState(params=params, opt=opt, step=state.step + 1,
-                         ef=state.ef)
-        m = {"loss": loss, "grad_norm": gnorm,
-             "lr": adamw.schedule(rc, state.step + 1, total_steps)}
-        m.update(metrics)
-        return out, m
+        with span("train.step"):
+            loss, metrics, grads = compute_grads(state.params, batch)
+            grads, gnorm = clip.clip_by_global_norm(grads, rc.grad_clip)
+            params, opt = adamw.apply(rc, state.params, grads, state.opt,
+                                      total_steps, decay=decay)
+            del grads
+            for p in params.values():
+                p.grad = None
+            out = TrainState(params=params, opt=opt, step=state.step + 1,
+                             ef=state.ef)
+            m = {"loss": loss, "grad_norm": gnorm,
+                 "lr": adamw.schedule(rc, state.step + 1, total_steps)}
+            m.update(metrics)
+            return out, m
 
     return step_fn
 

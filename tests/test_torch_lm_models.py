@@ -140,7 +140,8 @@ def test_embed_and_unembed_match_reference(tie, cap):
     tree = r_layers.embed_params(KEY, 128, 32, jnp.float32, tie)
     p = load(layers.Embed(128, 32, tie, **kw()), tree)
     toks = rng.integers(0, 128, (2, 9)).astype(np.int32)
-    close(layers.embed(p, t(toks)), r_layers.embed(tree, jnp.asarray(toks)))
+    close(layers.embed(p.embedding, t(toks)),
+          r_layers.embed(tree, jnp.asarray(toks)))
     x = normal(rng, 2, 9, 32, scale=30.0)
     close(layers.unembed(p, t(x), cap),
           r_layers.unembed(tree, jnp.asarray(x), cap), atol=1e-4)
